@@ -1,0 +1,403 @@
+"""FeatureNeRF pose blocks, eval path (port of custom_diffusion360_tpu/
+models/nerf.py): ray-march the target camera, sample the reference-view
+feature maps at the projected ray points, predict density and features with
+small MLPs; the caller volume-renders.
+
+Only the split/commuted encoding the TPU package runs in production is
+ported (``nerf_encoding_split``; see the JAX module for the algebra). The
+stochastic training branches (stratified jitter, the importance coin flip)
+and per-row reference masks are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..geometry.cameras import Cameras, transform_points_ndc
+from ..geometry.rays import (
+    get_patch_rays,
+    pe_freqs,
+    plucker_parameterization,
+    positional_encoding,
+    ray_points_from_rays,
+    rays_to_target_space,
+    rays_to_view_space,
+)
+from ..ops.onehot_sample import bilinear_sample
+from ..ops.sample_pdf import sample_pdf
+from .nn import Init, linear, linear_init, silu, torch_dtype
+
+# the sampled map channels [l1 plane rows | nviews row] are padded to this
+# multiple so each channel row is 16-byte aligned for the bilinear kernel's
+# vector loads (C + 1 is odd at every SDXL width)
+CHANNEL_ALIGN = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class NerfConfig:
+    dim: int
+    num_samples: int = 24
+    far_plane: float = 2.0
+    near_plane: float = 0.0
+    num_freqs: int = 16
+    rgb_predict: bool = True
+    average: bool = False
+    imp_sampling_percent: float = 0.9
+    chunk_size: int = 512
+    chunk_rows_ref: int = 2
+    compute_dtype: str = "float32"
+
+    @property
+    def cdtype(self):
+        return torch_dtype(self.compute_dtype)
+
+    @property
+    def total_far(self) -> float:
+        # reference quirk: the Raymarcher spans [near, near + (near + far)]
+        return self.near_plane + (self.near_plane + self.far_plane)
+
+    @property
+    def geom_feat_dim(self) -> int:
+        return self.num_freqs * 3 * 4 + 6
+
+
+def init_nerf_params(init: Init, cfg: NerfConfig):
+    in_dim = cfg.dim + cfg.geom_feat_dim
+    p = {
+        "plane_coefs": {
+            "l1": linear_init(init, in_dim, cfg.dim),
+            "l2": linear_init(init, cfg.dim, cfg.dim),
+        },
+        "decoder": linear_init(
+            init, cfg.dim, 1 + (3 if cfg.rgb_predict else 0), bias=False, zero=True
+        ),
+    }
+    if not cfg.average:
+        p["nviews"] = linear_init(init, in_dim, 1)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# ray marcher, eval path
+# ---------------------------------------------------------------------------
+
+
+def _length_edges(cfg: NerfConfig, device):
+    return torch.linspace(cfg.near_plane, cfg.total_far, cfg.num_samples + 1,
+                          dtype=torch.float32, device=device)
+
+
+def _uniform_lengths(cfg: NerfConfig, batch, num_rays, device):
+    edges = _length_edges(cfg, device)
+    centers = (edges[1:] + edges[:-1]) / 2.0
+    dists = edges[1:] - edges[:-1]
+    shape = (batch, num_rays, cfg.num_samples)
+    return centers.expand(shape), dists.expand(shape)
+
+
+def _resize_weights(src: int, dst: int, device):
+    """(src, dst) weights of ``jax.image.resize(..., "bilinear",
+    antialias=True)`` along one axis: a triangle kernel widened by src/dst
+    when downsampling, columns normalized, f32."""
+    inv_scale = src / dst
+    kernel_scale = max(inv_scale, 1.0)
+    sample_f = (torch.arange(dst, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = (sample_f[None, :] - torch.arange(src, dtype=torch.float32, device=device)[:, None]).abs()
+    w = (1.0 - x / kernel_scale).clamp_min(0.0)
+    total = w.sum(0, keepdim=True)
+    eps = 1000.0 * torch.finfo(torch.float32).eps
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= src - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def _importance_lengths(cfg: NerfConfig, prev_weights, num_rays):
+    """Inverse-CDF depths from the previous block's uniform render weights
+    prev_weights (B, hw_prev, S, 1); resized (antialiased bilinear) when the
+    previous block ran at another resolution."""
+    s = cfg.num_samples
+    cdf = prev_weights[..., 0] + 0.01
+    b, hw_prev = cdf.shape[:2]
+    if hw_prev != num_rays:
+        src, dst = math.isqrt(hw_prev), math.isqrt(num_rays)
+        wm = _resize_weights(src, dst, cdf.device)
+        img = cdf.reshape(b, src, src, s)
+        img = torch.einsum("bhws,hH,wW->bHWs", img, wm, wm)
+        cdf = img.reshape(b, num_rays, s)
+
+    cdf_sum = cdf.sum(-1, keepdim=True)
+    padding = F.relu(1e-5 - cdf_sum)
+    cdf = cdf + padding / s
+    pdf = cdf / (cdf_sum + padding)
+
+    edges = _length_edges(cfg, cdf.device).expand(b, num_rays, s + 1)
+    u = (torch.arange(s, dtype=torch.float32, device=cdf.device) * (1.0 / s)).expand(b, num_rays, s)
+    depths = sample_pdf(edges, pdf, u)
+    dists = torch.cat(
+        [depths[..., 1:] - depths[..., :-1], edges[..., -1:] - depths[..., -1:]], dim=-1
+    )
+    return depths, dists
+
+
+def raymarch(cams: Cameras, resolution: int, cfg: NerfConfig, prev_weights=None,
+             imp_sample_next_step: bool = False):
+    """Target rays and sample points, eval path. cams: (B, N+1), camera 0 the
+    target. Returns dict(rays (B, N+1, hw, 6), ray_points (B, hw, S, 3),
+    dists (B, hw, S), ray_points_uniform, dists_uniform (or None))."""
+    rays, _ = get_patch_rays(cams, resolution)
+    b = rays.shape[0]
+    num_rays = resolution * resolution
+    if prev_weights is None or cfg.imp_sampling_percent <= 0:
+        lengths, dists = _uniform_lengths(cfg, b, num_rays, rays.device)
+    else:
+        lengths, dists = _importance_lengths(cfg, prev_weights, num_rays)
+    target_rays = rays[:, 0]
+    ray_points = ray_points_from_rays(target_rays, lengths)
+    ray_points_uniform = dists_uniform = None
+    if imp_sample_next_step:
+        lengths_u, dists_uniform = _uniform_lengths(cfg, b, num_rays, rays.device)
+        ray_points_uniform = ray_points_from_rays(target_rays, lengths_u)
+    return dict(rays=rays, ray_points=ray_points, dists=dists,
+                ray_points_uniform=ray_points_uniform, dists_uniform=dists_uniform)
+
+
+# ---------------------------------------------------------------------------
+# encoding
+# ---------------------------------------------------------------------------
+
+
+class CompactRefTokens:
+    """Delta-buffer reference tokens in compact form: one zero-image plane
+    ``zero`` (hw, C) and the chosen views ``chosen`` (n, hw, C); the
+    (batch x CFG copies) expansion is deferred to ``project_ref_maps``, so
+    only the projected maps are ever expanded. Expanded row layout:
+    [zero rows x batch | chosen rows x batch x (copies - 1)]."""
+
+    def __init__(self, zero, chosen, batch: int, copies: int):
+        self.zero = zero
+        self.chosen = chosen
+        self.batch = int(batch)
+        self.copies = int(copies)
+
+    @property
+    def shape(self):
+        return (self.batch * self.copies, self.chosen.shape[0]) + tuple(self.chosen.shape[1:])
+
+    def expand_rows(self, zero_rows, chosen_rows):
+        b, k = self.batch, self.copies
+        if k == 1:
+            return chosen_rows[None].expand((b,) + tuple(chosen_rows.shape))
+        z = zero_rows[None].expand((b,) + tuple(zero_rows.shape))
+        s = chosen_rows[None].expand(((k - 1) * b,) + tuple(chosen_rows.shape))
+        return torch.cat([z, s], dim=0)
+
+
+def _l1_row_splits(cfg: NerfConfig):
+    """l1 rows by mlp_in segment: [plane (C), pe_pts_view (6nf), pts_view (3),
+    pe_cam_inview (6nf), cam_inview_dir (3)]."""
+    c, pe = cfg.dim, cfg.num_freqs * 6
+    return c, c + pe + 3, c + 2 * pe + 6
+
+
+def _nviews_row_splits(cfg: NerfConfig):
+    """attn_in rows: [plane (C), pe_pts_target (6nf), pts_target (3),
+    cam_target (3), pe_cam_target (6nf)]."""
+    c, pe = cfg.dim, cfg.num_freqs * 6
+    return c, c + pe + 3, c + pe + 6 + pe
+
+
+def project_ref_maps(params, xref, cfg: NerfConfig):
+    """Per-block projection of the reference maps by the plane-feature rows
+    of l1 and nviews. xref: CompactRefTokens of (B, N, HW, C) tokens.
+    Returns (B, N, HW, Cp) = [l1-projected (C) | nviews-projected (1) |
+    zeros], Cp the C + 1 channels (C without nviews) rounded up to
+    CHANNEL_ALIGN; readers slice the first C + 1."""
+    cdt = cfg.cdtype
+    c = cfg.dim
+    width = c + (0 if cfg.average else 1)
+    pad = -width % CHANNEL_ALIGN
+
+    def proj(x):
+        parts = [x @ params["plane_coefs"]["l1"]["w"][:c].to(cdt)]
+        if not cfg.average:
+            parts.append(x @ params["nviews"]["w"][:c].to(cdt))
+        if pad:
+            parts.append(x.new_zeros(tuple(x.shape[:-1]) + (pad,)))
+        return torch.cat(parts, dim=-1)
+
+    n = xref.chosen.shape[0]
+    g_chosen = proj(xref.chosen.float().to(cdt))
+    g_zero = proj(xref.zero.float().to(cdt))
+    zero_rows = g_zero[None].expand((n,) + tuple(g_zero.shape))
+    return xref.expand_rows(zero_rows, g_chosen).contiguous()
+
+
+def ray_shared_terms(params, cams: Cameras, rays, cfg: NerfConfig):
+    """Sample-axis-invariant contractions, once per ray. rays: (B, N+1, hw, 6).
+    Returns (geo_ray (B, N, hw, C), logit_ray (B, N, hw, 1) or None)."""
+    cdt = cfg.cdtype
+    nf = cfg.num_freqs
+    _, s1, _ = _l1_row_splits(cfg)
+    rays_view = rays_to_view_space(cams, rays[:, 0])[:, 1:]
+    ray_feat = torch.cat(
+        [positional_encoding(plucker_parameterization(rays_view), nf // 2),
+         rays_view[..., 3:]], dim=-1,
+    ).to(cdt)
+    l1 = params["plane_coefs"]["l1"]
+    geo_ray = ray_feat @ l1["w"][s1:].to(cdt)
+    if "b" in l1:
+        geo_ray = geo_ray + l1["b"].to(cdt)
+    logit_ray = None
+    if not cfg.average:
+        _, v1, _ = _nviews_row_splits(cfg)
+        ct = rays_to_target_space(cams, rays[:, 1:])[..., :3]
+        att_ray = torch.cat([ct, positional_encoding(ct, nf)], dim=-1).to(cdt)
+        nv = params["nviews"]
+        logit_ray = att_ray @ nv["w"][v1:].to(cdt)
+        if "b" in nv:
+            logit_ray = logit_ray + nv["b"].to(cdt)
+    return geo_ray, logit_ray
+
+
+def nerf_encoding_split(params, cams: Cameras, proj, geo_ray, logit_ray,
+                        ray_points, cfg: NerfConfig, sigma_only: bool = False):
+    """Per-point features + density. proj from project_ref_maps; geo_ray /
+    logit_ray from ray_shared_terms sliced to this hw chunk; ray_points
+    (B, hw, S, 3). Returns (out (B, hw, S, C+1[+3]) f32, attn (B, N, hw, S, 1))
+    or (sigma (B, hw, S, 1) f32, attn) when sigma_only."""
+    cdt = cfg.cdtype
+    c = cfg.dim
+    nf = cfg.num_freqs
+    b, n = proj.shape[:2]
+    hw, s = ray_points.shape[1], ray_points.shape[2]
+    res = math.isqrt(proj.shape[2])
+    _, s1, _ = _l1_row_splits(cfg)
+
+    # project the target ray points into every reference camera; the
+    # reference flips the sign and clips (nerfsd_pytorch3d.py:89-95)
+    ndc = transform_points_ndc(cams, ray_points.reshape(b, 1, hw * s, 3))
+    grid = torch.nan_to_num(-ndc[:, 1:, :, :2]).clamp(-1.2, 1.2)
+    fm = proj.reshape((b * n, res, res) + tuple(proj.shape[3:]))
+    sampled = bilinear_sample(fm, grid.reshape(b * n, hw * s, 2)).reshape(b, n, hw, s, -1)
+
+    # view-space points in coordinate-planes layout (B, N+1, 3, P)
+    p_pts = hw * s
+    pts_t = ray_points.reshape(b, p_pts, 3).transpose(1, 2)
+    R, T = cams.R, cams.T
+    pv = torch.stack(
+        [
+            pts_t[:, None, 0] * R[..., 0, e][..., None]
+            + pts_t[:, None, 1] * R[..., 1, e][..., None]
+            + pts_t[:, None, 2] * R[..., 2, e][..., None]
+            + T[..., e][..., None]
+            for e in range(3)
+        ],
+        dim=2,
+    )
+    # PE planes: all sines freq-major, then all cosines
+    freqs = pe_freqs(nf, pv.dtype, pv.device)
+    scaled = pv[:, :, None, :, :] * freqs[None, None, :, None, None]
+    sin = torch.sin(scaled).reshape(b, n + 1, nf * 3, p_pts)
+    cos = torch.cos(scaled).reshape(b, n + 1, nf * 3, p_pts)
+    pe = torch.cat([sin, cos], dim=2)  # (B, N+1, 6nf, P)
+
+    feat = torch.cat([pe[:, 1:], pv[:, 1:]], dim=2).to(cdt)  # (B, N, F, P)
+    l1w = params["plane_coefs"]["l1"]["w"]
+    h_geo = (feat.transpose(-1, -2) @ l1w[c:s1].to(cdt)).reshape(b, n, hw, s, c)
+    h_pre = sampled[..., :c].to(cdt) + h_geo + geo_ray[..., None, :]
+    del h_geo
+    h_act = silu(h_pre)
+    del h_pre
+
+    attn = None
+    if not cfg.average:
+        _, v1, _ = _nviews_row_splits(cfg)
+        vw = params["nviews"]["w"]
+        tgt = torch.cat([pe[:, 0], pv[:, 0]], dim=1).to(cdt)  # (B, F, P)
+        logit_pts = (tgt.transpose(1, 2) @ vw[c:v1, 0].to(cdt)).reshape(b, 1, hw, s)
+        logits = (sampled[..., c].to(cdt) + logit_pts + logit_ray[..., :1]).float()
+        attn = torch.softmax(logits, dim=1)  # (B, N, hw, S) f32
+    del sampled
+
+    attn_out = None if attn is None else attn[..., None]
+    if sigma_only:
+        l2 = params["plane_coefs"]["l2"]
+        wd = params["decoder"]["w"]
+        w2d = (l2["w"] @ wd)[:, -1]
+        h_sig = h_act @ w2d.to(cdt)  # (B, N, hw, S)
+        if attn is None:
+            sigma = h_sig.float().mean(1)
+        else:
+            sigma = (h_sig * attn.to(cdt)).sum(1, dtype=torch.float32)
+        if "b" in l2:
+            sigma = sigma + (l2["b"] @ wd)[-1]
+        return sigma[..., None], attn_out
+
+    h = linear(params["plane_coefs"]["l2"], h_act)
+    del h_act
+    if attn is None:
+        pooled = h.float().mean(1)
+    else:
+        pooled = (h * attn[..., None].to(cdt)).sum(1, dtype=torch.float32)
+    out = linear(params["decoder"], pooled)  # f32 (density feeds trunc_exp)
+    return torch.cat([pooled, out], dim=-1), attn_out
+
+
+def effective_chunk(chunk: int, rows: int, chunk_rows_ref: int, hw: int) -> int:
+    """Batch-scaled ray-chunk size, rounded down to a power of two; more rows
+    than chunk_rows_ref scale it down quadratically (floor 128)."""
+    if not chunk:
+        return 0
+    if chunk_rows_ref and rows > chunk_rows_ref:
+        chunk = max(128, chunk * chunk_rows_ref**2 // rows**2)
+    chunk = 1 << (chunk.bit_length() - 1)
+    while hw % chunk:
+        chunk //= 2
+    return chunk
+
+
+def nerfsd_apply(params, cams: Cameras, xref, cfg: NerfConfig, prev_weights=None,
+                 imp_sample_next_step: bool = False):
+    """Ray-march + encode, eval path. xref: CompactRefTokens of (B, N, hw,
+    C) tokens. Returns dict(features, sigma, dists, rgb,
+    sigma_uniform, dists_uniform), per-point shapes (B, hw, S, *), f32.
+    Rays stream through the encoding in chunks of effective_chunk rays."""
+    resolution = math.isqrt(xref.shape[2])
+    march = raymarch(cams, resolution, cfg, prev_weights=prev_weights,
+                     imp_sample_next_step=imp_sample_next_step)
+    proj = project_ref_maps(params, xref, cfg)
+    geo_ray, logit_ray = ray_shared_terms(params, cams, march["rays"], cfg)
+
+    def encode(points, sigma_only=False):
+        hw = points.shape[1]
+        chunk = effective_chunk(cfg.chunk_size, points.shape[0], cfg.chunk_rows_ref, hw)
+        if not chunk or hw <= chunk:
+            return nerf_encoding_split(params, cams, proj, geo_ray, logit_ray,
+                                       points, cfg, sigma_only=sigma_only)[0].float()
+        outs = []
+        for start in range(0, hw, chunk):
+            sl = slice(start, start + chunk)
+            lr = None if logit_ray is None else logit_ray[:, :, sl]
+            outs.append(nerf_encoding_split(
+                params, cams, proj, geo_ray[:, :, sl], lr, points[:, sl], cfg,
+                sigma_only=sigma_only,
+            )[0].float())
+        return torch.cat(outs, dim=1)
+
+    out = encode(march["ray_points"])
+    sigma = out[..., -1:]
+    features = out[..., :-1]
+    rgb = None
+    if cfg.rgb_predict:
+        rgb = features[..., -3:]
+        features = features[..., :-3]
+    sigma_uniform = dists_uniform = None
+    if imp_sample_next_step:
+        sigma_uniform = encode(march["ray_points_uniform"], sigma_only=True)
+        dists_uniform = march["dists_uniform"][..., None]
+    return dict(features=features, sigma=sigma, dists=march["dists"][..., None],
+                rgb=rgb, sigma_uniform=sigma_uniform, dists_uniform=dists_uniform)

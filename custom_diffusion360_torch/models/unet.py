@@ -1,0 +1,312 @@
+"""SDXL UNet with FeatureNeRF pose blocks, inference path (port of
+custom_diffusion360_tpu/models/unet.py).
+
+The network is a static spec built from the config, walked by init and
+apply over a dict of tensors, as in the JAX package. NHWC activations. The
+pose blocks render from precomputed reference tokens (``ref_features``) or
+read the render cache (``nerf_caches``); the frozen live reference stream
+(``input_ref``) of training and the x3 guider's prefix dedupe are not ported
+yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from .. import resolve_device
+from .nerf import NerfConfig
+from .nn import (
+    Init,
+    conv2d,
+    conv2d_init,
+    group_norm_init,
+    group_norm_silu,
+    linear,
+    linear_init,
+    silu,
+    timestep_embedding,
+    torch_dtype,
+    upsample_nearest_2x,
+)
+from .transformer import (
+    TransformerConfig,
+    context_kv,
+    init_spatial_transformer,
+    spatial_transformer_apply,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    model_channels: int = 320
+    out_channels: int = 4
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (4, 2)
+    channel_mult: Tuple[int, ...] = (1, 2, 4)
+    transformer_depth: Tuple[int, ...] = (1, 2, 10)
+    context_dim: int = 2048
+    adm_in_channels: int = 2816
+    num_head_channels: int = 64
+    image_cross_blocks: Tuple[int, ...] = (0, 2, 4, 6, 8, 10)
+    rgb_predict: bool = True
+    far: float = 2.0
+    num_samples: int = 24
+    near_plane: float = 0.0
+    average: bool = False
+    num_freqs: int = 16
+    use_prev_weights_imp_sample: bool = True
+    poscontrol_interval: int = 4
+    imp_sampling_percent: float = 0.9
+    add_lora: bool = False
+    nerf_chunk_size: int = 512
+    nerf_dtype: str = "float32"
+
+    def nerf_config(self, dim: int) -> NerfConfig:
+        return NerfConfig(
+            dim=dim, num_samples=self.num_samples, far_plane=self.far,
+            near_plane=self.near_plane, num_freqs=self.num_freqs,
+            rgb_predict=self.rgb_predict, average=self.average,
+            imp_sampling_percent=self.imp_sampling_percent,
+            chunk_size=self.nerf_chunk_size, compute_dtype=self.nerf_dtype,
+        )
+
+    def transformer_config(self, ch: int, depth: int, attn_id: int) -> TransformerConfig:
+        return TransformerConfig(
+            dim=ch, depth=depth, n_heads=ch // self.num_head_channels,
+            d_head=self.num_head_channels, context_dim=self.context_dim,
+            image_cross=attn_id in self.image_cross_blocks,
+            poscontrol_interval=self.poscontrol_interval,
+            use_prev_weights_imp_sample=self.use_prev_weights_imp_sample,
+            rgb_predict=self.rgb_predict, add_lora=self.add_lora,
+            nerf=self.nerf_config(ch),
+        )
+
+
+def build_unet_spec(cfg: UNetConfig):
+    """(input_blocks, middle_block, output_blocks, num_transformers); each
+    block a list of layer specs ("conv_in", in, out), ("res", in, out),
+    ("attn", ch, depth, attn_id), ("down", ch), ("up", ch)."""
+    input_blocks = [[("conv_in", cfg.in_channels, cfg.model_channels)]]
+    input_chans = [cfg.model_channels]
+    ch = cfg.model_channels
+    ds = 1
+    attn_id = 0
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            layers = [("res", ch, mult * cfg.model_channels)]
+            ch = mult * cfg.model_channels
+            if ds in cfg.attention_resolutions:
+                layers.append(("attn", ch, cfg.transformer_depth[level], attn_id))
+                attn_id += 1
+            input_blocks.append(layers)
+            input_chans.append(ch)
+        if level != len(cfg.channel_mult) - 1:
+            input_blocks.append([("down", ch)])
+            input_chans.append(ch)
+            ds *= 2
+
+    middle_block = [("res", ch, ch),
+                    ("attn", ch, cfg.transformer_depth[-1], attn_id),
+                    ("res", ch, ch)]
+    attn_id += 1
+
+    output_blocks = []
+    for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
+        for i in range(cfg.num_res_blocks + 1):
+            ich = input_chans.pop()
+            layers = [("res", ch + ich, cfg.model_channels * mult)]
+            ch = cfg.model_channels * mult
+            if ds in cfg.attention_resolutions:
+                layers.append(("attn", ch, cfg.transformer_depth[level], attn_id))
+                attn_id += 1
+            if level and i == cfg.num_res_blocks:
+                layers.append(("up", ch))
+                ds //= 2
+            output_blocks.append(layers)
+    return input_blocks, middle_block, output_blocks, attn_id
+
+
+def attn_block_meta(cfg: UNetConfig):
+    """{attn_id: (ds, channels, depth)} for every spatial transformer."""
+    inb, mid, outb, _ = build_unet_spec(cfg)
+    meta = {}
+    ds = 1
+    for block in inb:
+        for spec in block:
+            if spec[0] == "attn":
+                meta[spec[3]] = (ds, spec[1], spec[2])
+            elif spec[0] == "down":
+                ds *= 2
+    meta[mid[1][3]] = (ds, mid[1][1], mid[1][2])
+    for block in outb:
+        for spec in block:
+            if spec[0] == "attn":
+                meta[spec[3]] = (ds, spec[1], spec[2])
+            elif spec[0] == "up":
+                ds //= 2
+    return meta
+
+
+# ---------------------------------------------------------------------------
+# init / layers
+# ---------------------------------------------------------------------------
+
+
+def _init_resblock(init: Init, in_ch, out_ch, emb_dim):
+    p = {
+        "norm_in": group_norm_init(init, in_ch),
+        "conv_in": conv2d_init(init, in_ch, out_ch, 3),
+        "emb": linear_init(init, emb_dim, out_ch),
+        "norm_out": group_norm_init(init, out_ch),
+        "conv_out": conv2d_init(init, out_ch, out_ch, 3, zero=True),
+    }
+    if in_ch != out_ch:
+        p["skip"] = conv2d_init(init, in_ch, out_ch, 1)
+    return p
+
+
+def _resblock_apply(p, x, emb):
+    # ResBlock GroupNorms use eps 1e-5 (GroupNorm32), unlike the 1e-6 of the
+    # transformer/VAE norms
+    h = conv2d(p["conv_in"], group_norm_silu(p["norm_in"], x, eps=1e-5))
+    h = h + linear(p["emb"], silu(emb))[:, None, None, :].to(h.dtype)
+    h = conv2d(p["conv_out"], group_norm_silu(p["norm_out"], h, eps=1e-5))
+    skip = conv2d(p["skip"], x) if "skip" in p else x
+    return skip + h
+
+
+def _init_layer(init: Init, spec, cfg: UNetConfig, emb_dim):
+    kind = spec[0]
+    if kind == "conv_in":
+        return conv2d_init(init, spec[1], spec[2], 3)
+    if kind == "res":
+        return _init_resblock(init, spec[1], spec[2], emb_dim)
+    if kind == "attn":
+        _, ch, depth, attn_id = spec
+        return init_spatial_transformer(init, ch, cfg.transformer_config(ch, depth, attn_id))
+    if kind in ("down", "up"):
+        return conv2d_init(init, spec[1], spec[1], 3)
+    raise ValueError(kind)
+
+
+def init_unet_params(cfg: UNetConfig, seed: int = 0, device="cuda",
+                     dtype=torch.float32):
+    """Seeded random parameters with the JAX initializer's structure and
+    distributions (kaiming-uniform; zero-init out layers, identity
+    pose_emb_layers). The draws differ from JAX's."""
+    init = Init(seed, resolve_device(device), torch_dtype(dtype))
+    inb, mid, outb, _ = build_unet_spec(cfg)
+    emb_dim = cfg.model_channels * 4
+    params = {
+        "time_embed": {"l1": linear_init(init, cfg.model_channels, emb_dim),
+                       "l2": linear_init(init, emb_dim, emb_dim)},
+        "label_emb": {"l1": linear_init(init, cfg.adm_in_channels, emb_dim),
+                      "l2": linear_init(init, emb_dim, emb_dim)},
+        "out_norm": group_norm_init(init, cfg.model_channels),
+        "out_conv": conv2d_init(init, cfg.model_channels, cfg.out_channels, 3, zero=True),
+    }
+    params["input_blocks"] = [[_init_layer(init, s, cfg, emb_dim) for s in blk] for blk in inb]
+    params["middle_block"] = [_init_layer(init, s, cfg, emb_dim) for s in mid]
+    params["output_blocks"] = [[_init_layer(init, s, cfg, emb_dim) for s in blk] for blk in outb]
+    return params
+
+
+def _mlp2(p, x):
+    return linear(p["l2"], silu(linear(p["l1"], x)))
+
+
+def _iter_attn(params, cfg: UNetConfig):
+    """(layer params, spec) of every spatial transformer, in network order."""
+    inb, mid, outb, _ = build_unet_spec(cfg)
+    for lp_block, spec_block in zip(params["input_blocks"], inb):
+        for lp, spec in zip(lp_block, spec_block):
+            if spec[0] == "attn":
+                yield lp, spec
+    for lp, spec in zip(params["middle_block"], mid):
+        if spec[0] == "attn":
+            yield lp, spec
+    for lp_block, spec_block in zip(params["output_blocks"], outb):
+        for lp, spec in zip(lp_block, spec_block):
+            if spec[0] == "attn":
+                yield lp, spec
+
+
+def precompute_context_kv(params, cfg: UNetConfig, context):
+    """{attn_id: [per-depth (k, v)]} text cross-attention K/V for a fixed
+    (CFG-batched, compute-dtype) context (B, M, context_dim)."""
+    return {spec[3]: [context_kv(blk["attn2"], context) for blk in lp["blocks"]]
+            for lp, spec in _iter_attn(params, cfg)}
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
+               nerf_caches=None, ref_features=None, ctx_kv=None,
+               compute_dtype=torch.float32):
+    """Denoising forward. x: (B, H, W, Cin) NHWC (already c_in-scaled);
+    timesteps: (B,) c_noise; context: (B', 77, context_dim) and y
+    (B', adm_in) with the B target rows first. ref_features:
+    {attn_id: {depth: tokens}} for the render; nerf_caches:
+    {attn_id: {depth: rendered}} replacing it; ctx_kv: precompute_context_kv
+    output. Returns (eps in x.dtype, aux) with aux = dict(fg_mask_list,
+    alphas_list, rgb_list, rendered)."""
+    compute_dtype = torch_dtype(compute_dtype)
+    b = x.shape[0]
+    emb = _mlp2(params["time_embed"], timestep_embedding(timesteps, cfg.model_channels))
+    if y is not None:
+        emb = emb + _mlp2(params["label_emb"], y[:b])
+    context = context[:b].to(compute_dtype)
+
+    inb_spec, mid_spec, outb_spec, _ = build_unet_spec(cfg)
+    h = x.to(compute_dtype)
+    fg_mask_list, alphas_list, rgb_list, rendered = [], [], [], {}
+
+    def apply_layer(lp, spec, h):
+        kind = spec[0]
+        if kind == "conv_in":
+            return conv2d(lp, h)
+        if kind == "res":
+            return _resblock_apply(lp, h, emb)
+        if kind == "down":
+            return conv2d(lp, h, stride=2, padding=((1, 1), (1, 1)))
+        if kind == "up":
+            return conv2d(lp, upsample_nearest_2x(h))
+        if kind == "attn":
+            _, ch, depth, attn_id = spec
+            h, aux = spatial_transformer_apply(
+                lp, h, context, cfg.transformer_config(ch, depth, attn_id),
+                cams=cams,
+                nerf_cache=None if nerf_caches is None else nerf_caches.get(attn_id),
+                ref_features=None if ref_features is None else ref_features.get(attn_id),
+                ctx_kv=None if ctx_kv is None else ctx_kv.get(attn_id),
+            )
+            fg_mask_list.extend(aux["fg_masks"])
+            alphas_list.extend(aux["alphas"])
+            rgb_list.extend(aux["rgbs"])
+            if aux["rendered"]:
+                rendered[attn_id] = aux["rendered"]
+            return h
+        raise ValueError(kind)
+
+    hs = []
+    for lp_block, spec_block in zip(params["input_blocks"], inb_spec):
+        for lp, spec in zip(lp_block, spec_block):
+            h = apply_layer(lp, spec, h)
+        hs.append(h)
+    for lp, spec in zip(params["middle_block"], mid_spec):
+        h = apply_layer(lp, spec, h)
+    for lp_block, spec_block in zip(params["output_blocks"], outb_spec):
+        h = torch.cat([h, hs.pop()], dim=-1)
+        for lp, spec in zip(lp_block, spec_block):
+            h = apply_layer(lp, spec, h)
+
+    out = conv2d(params["out_conv"], group_norm_silu(params["out_norm"], h, eps=1e-5))
+    aux = dict(fg_mask_list=fg_mask_list, alphas_list=alphas_list,
+               rgb_list=rgb_list, rendered=rendered)
+    return out.to(x.dtype), aux
