@@ -6,37 +6,51 @@
 Phases:
   1. build every kernel under custom_diffusion360_torch/csrc with nvcc
      (one process per source, all started together);
-  2. hold each kernel against its plain PyTorch version at the main-path
-     shapes (max-abs error vs a stated tolerance) and time kernel, plain
-     version and the one-call PyTorch yardstick (SDPA / F.grid_sample),
-     beside the least time the card could take (bound);
-  3. the main path: full-width SDXL, 12 FeatureNeRF pose blocks, 1024^2,
+  2. hold each kernel against its plain PyTorch version (max-abs error vs a
+     stated tolerance) and time kernel, plain version and the one-call
+     PyTorch yardstick (SDPA, F.grid_sample and its backward, F.layer_norm,
+     F.group_norm + F.silu), beside the least time the card could take
+     (bound): fixed attention and bilinear cases first, then every other
+     (kernel, shape) that the two main paths below launched;
+  3. the sampling path: full-width SDXL, 12 FeatureNeRF pose blocks, 1024^2,
      batch 1, CFG x2 (vanilla_cfg_img_ref, scale 7.5), 8 reference views,
      50 Euler-EDM steps with the render cached after step 0, then
      decode_first_stage. After a warm-up run, launch counters (per kernel
      and per shape) are zeroed just before the timed run and read just
-     after; every kernel must have launched, and every shape launched must
-     be one that phase 2 checked; a short run then traces two cached steps
-     with torch.profiler (device time by kernel group, idle share);
-  4. a small configuration sampled twice: on the card through the kernels
-     and on the CPU through the plain versions; the two latents must agree.
+     after; a short run then traces two cached steps with torch.profiler
+     (device time by kernel group, idle share);
+  4. the training path: Trainer.train_step -> Engine.training_loss at the
+     same width with both text towers (CLIP-L, OpenCLIP bigG, one V* row
+     each) and the VAE encoder, 512^2, batch 1, 1 target + 4 reference
+     views, trainkeys "pose", AdamW; one warm-up step, then TRAIN_STEPS
+     timed steps with the counters zeroed just before and read just after,
+     then one traced step;
+  5. small configurations run twice, on the card through the kernels (bf16)
+     and on the CPU through the plain versions (f32): a 3-step sample +
+     decode, whose latent and image must agree, and one training step,
+     whose loss and trainable gradients must agree.
 
-Prints the card's name and power limit first, the phase-2 checks of shapes
-the main path does not launch, a ``{"kernels": [...]}`` line (one row per
-main-path shape, with its launches in the timed run) and, last,
-``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
-the last line. Weights are random, made from a seed.
+Every kernel must launch on a main path (the bilinear backward on the
+training path), and every shape a main path launched must have passed
+phase 2. Prints the card's name and power limit first, a JSON line per
+main path, the phase-2 rows of shapes no main path launched, a
+``{"kernels": [...]}`` line (one row per launched shape, with its launches
+in the timed runs), the card line again and, last, ``{"ok": true,
+"device": {...}}``. Any failed phase exits non-zero without the last line.
+Weights are random, made from a seed.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 bandwidth, H100 SXM data sheet
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -77,9 +91,11 @@ def time_ms(fn, budget_ms=300.0, max_iters=50):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=H100_BF16_FLOPS):
+    """(least ms, "bytes" or "operations"): bytes at the HBM rate vs
+    operations at ``peak`` FLOP/s."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -106,17 +122,34 @@ ATTN_CASES = [
 ATTN_TOL = 1e-2  # of max|ref|
 
 BILINEAR_CASES = [
-    # (label, M, side, C launched, C needed, P): the FeatureNeRF reader needs
-    # C + 1 = 641/1281 channels, padded to 648/1288 on the main path; the
-    # bound counts the needed channels only
-    ("ds2 pose block", 16, 64, 648, 641, 98304),
-    ("ds4 pose block", 16, 32, 1288, 1281, 24576),
-    ("ds2 unpadded odd C", 16, 64, 641, 641, 98304),
+    # (label, M, side, C launched, C needed, P, maps dtype): the FeatureNeRF
+    # reader needs C + 1 = 641/1281 channels, padded to 648/1288 on the main
+    # paths; the bound counts the needed channels only
+    ("ds2 pose block", 16, 64, 648, 641, 98304, "bf16"),
+    ("ds4 pose block", 16, 32, 1288, 1281, 24576, "bf16"),
+    ("ds2 unpadded odd C", 16, 64, 641, 641, 98304, "bf16"),
 ]
 BILINEAR_TOL = 1e-2  # relative to max|ref|: one bf16 rounding of the output
+# f32 kernels vs their f32 plain versions: the same sums in another order
+# (and, for the bilinear backward, f32 atomics in a run-dependent order)
+F32_TOL = 1e-5  # relative to max|ref|
+NORM_TOL_BF16 = 1e-2  # relative to max|ref|: one bf16 rounding of the output
+DT = {}  # torch dtype <-> "bf16" / "f32", filled in main()
 
 
-def check_attention(torch, results):
+def needed_channels(c):
+    """The FeatureNeRF maps carry dim + 1 channels padded to a multiple of 8
+    (models/nerf.project_ref_maps); the bound counts the dim + 1."""
+    return {648: 641, 1288: 1281}.get(c, c)
+
+
+def budget_ms(elements):
+    """Timing budget: enough launches for a steady mean at the big shapes,
+    few at the many small norm shapes so phase 2 stays short."""
+    return 150.0 if elements > 1 << 22 else 60.0
+
+
+def check_attention(torch, results, cases=ATTN_CASES):
     import torch.nn.functional as F
 
     from custom_diffusion360_torch.ops.block_attention import (
@@ -127,7 +160,7 @@ def check_attention(torch, results):
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for label, b, h, n, m, d, kv_len, packed, replaces in ATTN_CASES:
+    for label, b, h, n, m, d, kv_len, packed, replaces in cases:
         scale = d**-0.5
         if packed:
             qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda",
@@ -148,7 +181,7 @@ def check_attention(torch, results):
         tol = ATTN_TOL * ref_max
         ok = math.isfinite(err) and err <= tol
         del ref
-        ms = time_ms(run)
+        ms = time_ms(run, budget_ms=budget_ms(n * m * b * h))
         plain_ms = time_ms(lambda: attention_plain(q, k, v, scale, kv_len), max_iters=5)
         mask = None
         if kv_len is not None:
@@ -163,7 +196,7 @@ def check_attention(torch, results):
             route="cuda", source="custom_diffusion360_torch/csrc/attention.cu",
             replaces=replaces, max_abs_err=err, tol=tol, ref_rms=ref_rms, ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-            ok=ok, _key=("attention", (b, h, n, m, d, keys)),
+            ok=ok, _key=("attention", (b, h, n, m, d, m if kv_len is None else kv_len)),
         ))
         log(f"[kernels] attention {label}: err {err:.3e} (tol {tol:.3e} = {ATTN_TOL} "
             f"x max|ref| {ref_max:.4f}; ref rms {ref_rms:.4f}) "
@@ -171,16 +204,16 @@ def check_attention(torch, results):
             f"bound {bms:.4f} ms ({by}) {'OK' if ok else 'FAIL'}")
 
 
-def check_bilinear(torch, results):
+def check_bilinear(torch, results, cases=BILINEAR_CASES):
     import torch.nn.functional as F
 
     from custom_diffusion360_torch.ops.grid_sample import grid_sample_2d
     from custom_diffusion360_torch.ops.onehot_sample import bilinear_sample
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for label, mm, side, c, c_need, p in BILINEAR_CASES:
-        feats = torch.randn((mm, side, side, c), generator=gen, device="cuda",
-                            dtype=torch.bfloat16)
+    for label, mm, side, c, c_need, p, dt in cases:
+        dtype = DT[dt]
+        feats = torch.randn((mm, side, side, c), generator=gen, device="cuda").to(dtype)
         # the FeatureNeRF grid range: clipped to +-1.2, with exact +-1 points
         grid = (torch.rand((mm, p, 2), generator=gen, device="cuda") * 2.4 - 1.2)
         grid[:, :64] = torch.tensor([1.0, -1.0], device="cuda")
@@ -189,32 +222,215 @@ def check_bilinear(torch, results):
         ref = grid_sample_2d(feats.float(), grid)
         scale_ref = max(1.0, float(ref.abs().max()))
         err = float((got.float() - ref).abs().max())
-        ok = math.isfinite(err) and err <= BILINEAR_TOL * scale_ref
+        tol = (BILINEAR_TOL if dtype == torch.bfloat16 else F32_TOL) * scale_ref
+        ok = math.isfinite(err) and err <= tol
         ms = time_ms(lambda: bilinear_sample(feats, grid))
         plain_ms = time_ms(lambda: grid_sample_2d(feats, grid), max_iters=5)
         nchw = feats.permute(0, 3, 1, 2)
         g4 = grid[:, :, None, :].to(feats.dtype)  # grid_sample wants one dtype
         lib_ms = time_ms(lambda: F.grid_sample(nchw, g4, mode="bilinear",
                                                padding_mode="zeros", align_corners=True))
-        nbytes = mm * side * side * c_need * 2 + grid.numel() * 4 + mm * p * c_need * 2
-        bms, by = bound(nbytes, 8.0 * mm * p * c_need)
+        isz = feats.element_size()
+        nbytes = mm * side * side * c_need * isz + grid.numel() * 4 + mm * p * c_need * isz
+        bms, by = bound(nbytes, 8.0 * mm * p * c_need, H100_F32_FLOPS)
         results.append(dict(
-            name=f"bilinear_sample [{label} M{mm} {side}x{side} C{c} (needed {c_need}) P{p}]",
+            name=f"bilinear_sample [{label} M{mm} {side}x{side} C{c} (needed {c_need}) P{p} "
+                 f"{dt}]",
             route="cuda", source="custom_diffusion360_torch/csrc/bilinear_sample.cu",
             replaces="custom_diffusion360_tpu/ops/onehot_sample.py:263",
-            max_abs_err=err, tol=BILINEAR_TOL * scale_ref, ms=ms,
+            max_abs_err=err, tol=tol, ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-            ok=ok, _key=("bilinear", (mm, side, side, c, p)),
+            ok=ok, _key=("bilinear", (mm, side, side, c, p, dt)),
         ))
-        log(f"[kernels] bilinear {label}: err {err:.3e} (tol {BILINEAR_TOL * scale_ref:.3e}) "
+        log(f"[kernels] bilinear {label}: err {err:.3e} (tol {tol:.3e}) "
             f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms grid_sample {lib_ms:.3f} ms "
             f"bound {bms:.4f} ms ({by}) {'OK' if ok else 'FAIL'}")
         del feats, grid, got, ref
         torch.cuda.empty_cache()
 
 
+def _norm_params(torch, gen, c, dtype):
+    """Scale and bias in the activation dtype, as the models on the card
+    pass them (the wrappers copy them to f32 for the kernel)."""
+    scale = torch.randn((c,), generator=gen, device="cuda") * 0.1 + 1.0
+    return scale.to(dtype), torch.randn((c,), generator=gen, device="cuda").to(dtype)
+
+
+def _norm_tol(torch, dtype):
+    return NORM_TOL_BF16 if dtype == torch.bfloat16 else F32_TOL
+
+
+def check_layer_norm(torch, results, shapes):
+    """LayerNorm kernel vs ``_ln_plain`` at (rows, C, dtype); yardstick
+    F.layer_norm. Inputs N(1, 3^2): an offset the statistics must survive."""
+    import torch.nn.functional as F
+
+    from custom_diffusion360_torch.ops.norms import _ln_plain, layer_norm_fused
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for rows, c, dt in shapes:
+        dtype = DT[dt]
+        x = (torch.randn((rows, c), generator=gen, device="cuda") * 3.0 + 1.0).to(dtype)
+        s, b = _norm_params(torch, gen, c, dtype)
+        got = layer_norm_fused(x, s, b, 1e-5)
+        torch.cuda.synchronize()
+        ref = _ln_plain(x.float(), s, b, 1e-5)
+        err, tol = float((got.float() - ref).abs().max()), _norm_tol(torch, dtype) * float(
+            ref.abs().max())
+        budget = budget_ms(rows * c)
+        ms = time_ms(lambda: layer_norm_fused(x, s, b, 1e-5), budget_ms=budget)
+        plain_ms = time_ms(lambda: _ln_plain(x, s, b, 1e-5), budget_ms=budget, max_iters=5)
+        lib_ms = time_ms(lambda: F.layer_norm(x, (c,), s, b, 1e-5), budget_ms=budget)
+        bms, by = bound(2 * x.numel() * x.element_size() + 2 * c * s.element_size(), 8.0 * x.numel(),
+                        H100_F32_FLOPS)
+        _row(results, f"layer_norm_fused [rows{rows} C{c} {dt}]",
+             "custom_diffusion360_torch/csrc/layer_norm.cu",
+             "custom_diffusion360_tpu/ops/norms.py:64", err, tol, ms, plain_ms, bms, by, lib_ms,
+             ("layer_norm", (rows, c, dt)), "F.layer_norm")
+
+
+def check_group_norm(torch, results, shapes):
+    """GroupNorm(+SiLU) kernel vs ``_gn_plain`` at (N, HW, C, G, act,
+    dtype); yardstick F.group_norm (+ F.silu) on the channels-last view.
+    Inputs N(20, 0.5^2): a one-pass E[x^2] - E[x]^2 would lose the variance."""
+    import torch.nn.functional as F
+
+    from custom_diffusion360_torch.ops.norms import _gn_plain, group_norm_fused
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for n, hw, c, g, act, dt in shapes:
+        dtype, act = DT[dt], (None if act == "none" else act)
+        x = (torch.randn((n, hw, c), generator=gen, device="cuda") * 0.5 + 20.0).to(dtype)
+        s, b = _norm_params(torch, gen, c, dtype)
+        got = group_norm_fused(x, s, b, g, 1e-6, act)
+        torch.cuda.synchronize()
+        ref = _gn_plain(x.float(), s, b, g, 1e-6, act)
+        err, tol = float((got.float() - ref).abs().max()), _norm_tol(torch, dtype) * float(
+            ref.abs().max())
+        del got, ref
+        budget = budget_ms(x.numel())
+        ms = time_ms(lambda: group_norm_fused(x, s, b, g, 1e-6, act), budget_ms=budget)
+        plain_ms = time_ms(lambda: _gn_plain(x, s, b, g, 1e-6, act), budget_ms=budget,
+                           max_iters=5)
+        xv = x.permute(0, 2, 1)  # (N, C, HW) view
+        lib = (lambda: F.silu(F.group_norm(xv, g, s, b, 1e-6))) if act else (
+            lambda: F.group_norm(xv, g, s, b, 1e-6))
+        lib_ms = time_ms(lib, budget_ms=budget)
+        bms, by = bound(2 * x.numel() * x.element_size() + 2 * c * s.element_size(),
+                        (14.0 if act else 10.0) * x.numel(), H100_F32_FLOPS)
+        _row(results, f"group_norm_fused [N{n} HW{hw} C{c} G{g} act {act or 'none'} {dt}]",
+             "custom_diffusion360_torch/csrc/group_norm.cu",
+             "custom_diffusion360_tpu/ops/norms.py:209", err, tol, ms, plain_ms, bms, by, lib_ms,
+             ("group_norm", (n, hw, c, g, act or "none", dt)),
+             "F.group_norm" + (" + F.silu" if act else ""))
+        del x
+        torch.cuda.empty_cache()
+
+
+def check_bilinear_bwd(torch, results, shapes):
+    """W^T g kernel vs ``bilinear_sample_bwd_plain`` (autograd of the plain
+    sampling) at (M, H, W, C, P, dtype); yardstick the backward of
+    F.grid_sample with respect to its input (graph built once, outside the
+    timing)."""
+    import torch.nn.functional as F
+
+    from custom_diffusion360_torch.ops.onehot_sample import (
+        bilinear_sample_bwd,
+        bilinear_sample_bwd_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for mm, h, w, c, p, dt in shapes:
+        dtype = DT[dt]
+        g = torch.randn((mm, p, c), generator=gen, device="cuda").to(dtype)
+        grid = torch.rand((mm, p, 2), generator=gen, device="cuda") * 2.4 - 1.2
+        grid[:, :64] = torch.tensor([1.0, -1.0], device="cuda")
+        fshape = (mm, h, w, c)
+        got = bilinear_sample_bwd(g, grid, fshape, dtype)
+        torch.cuda.synchronize()
+        ref = bilinear_sample_bwd_plain(g.float(), grid, fshape, torch.float32)
+        tol = (NORM_TOL_BF16 if dtype == torch.bfloat16 else F32_TOL) * float(ref.abs().max())
+        err = float((got.float() - ref).abs().max())
+        del got, ref
+        ms = time_ms(lambda: bilinear_sample_bwd(g, grid, fshape, dtype))
+        plain_ms = time_ms(lambda: bilinear_sample_bwd_plain(g, grid, fshape, dtype),
+                           max_iters=5)
+        feats = torch.zeros((mm, c, h, w), device="cuda", dtype=dtype,
+                            requires_grad=True)
+        out = F.grid_sample(feats, grid[:, None].to(dtype), mode="bilinear",
+                            padding_mode="zeros", align_corners=True)  # (M, C, 1, P)
+        g4 = g.permute(0, 2, 1)[:, :, None, :]
+        lib_ms = time_ms(lambda: torch.autograd.grad(out, feats, g4, retain_graph=True))
+        c_need, isz = needed_channels(c), g.element_size()
+        nbytes = mm * p * c_need * isz + grid.numel() * 4 + mm * h * w * c_need * isz
+        bms, by = bound(nbytes, 8.0 * mm * p * c_need, H100_F32_FLOPS)
+        _row(results, f"bilinear_sample_bwd [M{mm} {h}x{w} C{c} (needed {c_need}) P{p} {dt}]",
+             "custom_diffusion360_torch/csrc/bilinear_sample_bwd.cu",
+             "custom_diffusion360_tpu/ops/onehot_sample.py:224", err, tol, ms, plain_ms, bms,
+             by, lib_ms, ("bilinear_bwd", (mm, h, w, c, p, dt)), "grid_sample backward")
+        del g, grid, feats, out, g4
+        torch.cuda.empty_cache()
+
+
+def _row(results, name, source, replaces, err, tol, ms, plain_ms, bms, by, lib_ms, key,
+         lib_name):
+    ok = math.isfinite(err) and err <= tol
+    results.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                        bound_by=by, library_ms=lib_ms, ok=ok, _key=key))
+    log(f"[kernels] {name}: err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms {lib_name} {lib_ms:.4f} ms bound {bms:.4f} ms ({by}) "
+        f"{'OK' if ok else 'FAIL'}")
+
+
+def check_launched(torch, results, launched):
+    """Phase 2 for every launched (kernel, shape) that no row of ``results``
+    covers yet: the shapes the main paths gave each kernel."""
+    done = {r["_key"] for r in results}
+    todo = {}
+    for kernel, shape in sorted(set(launched) - done, key=str):
+        todo.setdefault(kernel, []).append(shape)
+    t0 = time.time()
+    attn = [("main path", b, h, n, m, d, None if kv == m else kv, False,
+             "custom_diffusion360_tpu/ops/" + ("attention.py:149" if d == 512 and m > 4096
+                                              else "block_attention.py:123"))
+            for b, h, n, m, d, kv in todo.pop("attention", [])]
+    check_attention(torch, results, attn)
+    check_bilinear(torch, results, [("main path", mm, h, c, needed_channels(c), p, dt)
+                                    for mm, h, w, c, p, dt in todo.pop("bilinear", [])])
+    check_bilinear_bwd(torch, results, todo.pop("bilinear_bwd", []))
+    check_layer_norm(torch, results, todo.pop("layer_norm", []))
+    check_group_norm(torch, results, todo.pop("group_norm", []))
+    if todo:
+        raise RuntimeError(f"no phase-2 check for kernels {sorted(todo)}")
+    log(f"[kernels] launched shapes checked in {time.time() - t0:.1f} s")
+
+
+def time_attention_backward(torch, shapes):
+    """The attention backward runs as the plain f32 recompute
+    (ops/block_attention.attention_bwd_plain); time it at the shapes that
+    take a gradient on the training path, beside SDPA's backward."""
+    import torch.nn.functional as F
+
+    from custom_diffusion360_torch.ops.block_attention import attention_bwd_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for b, h, n, m, d in shapes:
+        q, k, v, g = (torch.randn((b, h, x, d), generator=gen, device="cuda",
+                                  dtype=torch.bfloat16) for x in (n, m, m, n))
+        plain_ms = time_ms(lambda: attention_bwd_plain(q, k, v, g, d**-0.5), max_iters=10)
+        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, scale=d**-0.5)
+        lib_ms = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), g, retain_graph=True))
+        rows.append(dict(shape=[b, h, n, m, d], plain_ms=plain_ms, sdpa_bwd_ms=lib_ms))
+        log(f"[attn-bwd] (b{b} h{h} n{n} m{m} d{d}): plain f32 recompute {plain_ms:.4f} ms, "
+            f"SDPA backward {lib_ms:.4f} ms")
+    print(json.dumps({"attention_backward_plain": rows}), flush=True)
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the main path at full width
+# phase 3: the sampling path at full width
 # ---------------------------------------------------------------------------
 
 N_REF, LATENT, STEPS = 8, 128, 50
@@ -367,7 +583,8 @@ def run_main_path(torch, counters):
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA])
     run(prof, num_steps=TRACE_STEPS[1])
-    report_trace(torch, prof, sum(cached) / len(cached) * 1e3)
+    report_trace(torch, prof, sum(cached) / len(cached) * 1e3, TRACE_STEPS[1] - TRACE_STEPS[0],
+                 "cached step")
     del params, eng
     torch.cuda.empty_cache()
     return launches, by_shape
@@ -376,7 +593,10 @@ def run_main_path(torch, counters):
 TRACE_STEPS = (2, 4)  # sampler steps [2, 4) of a 4-step run, both cached
 KERNEL_GROUPS = (  # device kernels by name, first match wins
     ("attention kernel", ("attn_fwd_kernel",)),
+    ("bilinear bwd kernel", ("bilinear_bwd_kernel",)),
     ("bilinear kernel", ("bilinear_kernel",)),
+    ("layer_norm kernel", ("layer_norm_kernel",)),
+    ("group_norm kernel", ("gn_partial_kernel", "gn_combine_kernel", "gn_apply_kernel")),
     ("convolution", ("fprop", "conv", "implicit", "cudnn", "dgrad", "wgrad")),
     ("matmul f32 (no tensor cores)", ("gemm_f32f32", "sgemm")),
     ("matmul bf16", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")),
@@ -386,13 +606,12 @@ KERNEL_GROUPS = (  # device kernels by name, first match wins
 )
 
 
-def report_trace(torch, prof, step_ms):
-    """Device time per traced cached step, by kernel group, and the device's
-    busy share of ``step_ms``, the cached step's wall time without the
-    profiler."""
+def report_trace(torch, prof, step_ms, n, what):
+    """Device time per traced step (``n`` steps in the trace), by kernel
+    group, and the device's busy share of ``step_ms``, the step's wall time
+    without the profiler."""
     from torch.autograd import DeviceType
 
-    n = TRACE_STEPS[1] - TRACE_STEPS[0]
     groups, kernels = {}, []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
@@ -407,7 +626,7 @@ def report_trace(torch, prof, step_ms):
     if busy == 0.0:
         log("[trace] the profiler recorded no device time: breakdown not measured")
         return
-    log(f"[trace] cached step: device busy {busy:.2f} ms of {step_ms:.2f} ms wall "
+    log(f"[trace] {what}: device busy {busy:.2f} ms of {step_ms:.2f} ms wall "
         f"(idle share {1 - busy / step_ms:.3f}); "
         f"{sum(c for _, c, _ in kernels)} kernel launches per step")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -428,7 +647,134 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: kernels vs plain versions through a whole small sample
+# phase 4: the training path at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_RES, TRAIN_REFS, TRAIN_STEPS = 512, 4, 6
+BOS, EOT = 49406, 49407  # CLIP's start and end ids
+
+
+def make_train_batch(torch, cfg, b, n, res, device, seed=0, ids=(BOS, 320, None, EOT)):
+    """A synthetic training batch as bench.py --train builds it (images
+    N(0, 0.3^2), full masks, size tuples at ``res``), with a disc-shaped
+    opacity so the fg and bg terms are both live, and token ``ids`` (None:
+    the V* id, = vocab_size, the first modifier row) before the padding."""
+    import numpy as np
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device) * 0.3
+
+    def tokens(m):
+        toks = torch.zeros((m, cfg.conditioner.clip_l.context_length), dtype=torch.int32)
+        vocab = cfg.conditioner.clip_l.vocab_size
+        toks[:, :len(ids)] = torch.tensor([vocab if i is None else i for i in ids])
+        return toks.to(device)
+
+    yy, xx = np.mgrid[:res, :res]
+    disc = ((yy - res / 2) ** 2 + (xx - res / 2) ** 2 < (0.35 * res) ** 2).astype(np.float32)
+    lat = res // 8
+
+    def full(*shape, value=1.0):
+        return torch.full(shape, float(value), device=device)
+
+    batch = {
+        "image": rnd(b, res, res, 3), "image_ref": rnd(b, n, res, res, 3),
+        "mask": full(b, lat, lat, 1), "mask_ref": full(b, n, lat, lat, 1),
+        "opacity": torch.from_numpy(disc)[None, :, :, None].expand(b, res, res, 1)
+        .contiguous().to(device),
+        "drop_im": full(b), "cams": make_cameras(torch, n, b, device),
+        "tokens_clip": tokens(b), "tokens_open": tokens(b),
+        "tokens_clip_ref": tokens(b * n), "tokens_open_ref": tokens(b * n),
+    }
+    for suffix, m in (("", b), ("_ref", b * n)):
+        batch["original_size" + suffix] = full(m, 2, value=res)
+        batch["crop_coords" + suffix] = full(m, 2, value=0.0)
+        batch["target_size" + suffix] = full(m, 2, value=res)
+    return batch
+
+
+def run_train_path(torch, counters):
+    """Full-width SDXL + 12 pose blocks + both text towers + the VAE
+    encoder, 512^2, batch 1, 1 + 4 views: one warm-up train step, then
+    TRAIN_STEPS timed steps (counted), then one traced step."""
+    from custom_diffusion360_torch.draws import Draws
+    from custom_diffusion360_torch.engine import Engine, EngineConfig
+    from custom_diffusion360_torch.models.unet import UNetConfig
+    from custom_diffusion360_torch.train.trainer import TrainConfig, Trainer
+
+    # bench.py --train's workload: bf16 weights and activations, the NeRF's
+    # f32 island at ray chunk 512 (the UNetConfig defaults)
+    cfg = EngineConfig(unet=UNetConfig(), compute_dtype="bfloat16")
+    t0 = time.time()
+    eng = Engine(cfg, device="cuda")
+    params = perturb_zero_leaves(torch, eng.init_params(seed=10), seed=11)
+    trainer = Trainer(eng, TrainConfig())
+    state = trainer.init_state(params)
+    del params
+    n_train = sum(p.numel() for p in trainer.trainable(state))
+    batch = make_train_batch(torch, cfg, 1, TRAIN_REFS, TRAIN_RES, "cuda")
+    torch.cuda.synchronize()
+    log(f"[train] trainable {n_train / 1e6:.2f} M f32 params (trainkeys pose), "
+        f"setup {time.time() - t0:.1f} s")
+
+    def step(i):
+        nonlocal state
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, metrics = trainer.train_step(
+            state, batch, Draws(torch.Generator(device="cuda").manual_seed(100 + i)))
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])  # synchronizes
+        torch.cuda.synchronize()
+        return time.perf_counter() - start, loss, gnorm, metrics
+
+    t_warm = step(0)[0]
+    for c in counters.values():
+        c.launches = 0
+        c.launches_by_shape.clear()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [step(1 + i) for i in range(TRAIN_STEPS)]
+    launches = {k: c.launches for k, c in counters.items()}
+    by_shape = {(k, shape): n for k, c in counters.items()
+                for shape, n in c.launches_by_shape.items()}
+    peak = torch.cuda.max_memory_allocated()
+    times = sorted(r[0] * 1e3 for r in runs)
+    med = statistics.median(times)
+    losses, gnorms = [r[1] for r in runs], [r[2] for r in runs]
+    ok = all(math.isfinite(x) for x in losses + gnorms) and min(gnorms) > 0.0
+    log(f"[train] warm-up step {t_warm * 1e3:.1f} ms; {TRAIN_STEPS} timed steps: median "
+        f"{med:.1f} ms (min {times[0]:.1f}, max {times[-1]:.1f}); peak memory allocated "
+        f"{peak / 2**30:.2f} GiB")
+    for i, (t, loss, gnorm, metrics) in enumerate(runs):
+        log(f"[train] step {i + 1}: {t * 1e3:.1f} ms loss {loss:.6f} grad_norm {gnorm:.6f} "
+            + " ".join(f"{k} {float(v):.5f}" for k, v in sorted(metrics.items())
+                       if k not in ("loss", "grad_norm")))
+    log(f"[train] launches in the timed steps {json.dumps(launches)}")
+    for (k, shape), n in sorted(by_shape.items(), key=str):
+        log(f"[train] launches {k} {shape}: {n} ({n / TRAIN_STEPS:g} per step)")
+    print(json.dumps({"train_path": {
+        "step_ms_median": med, "step_ms_min": times[0], "step_ms_max": times[-1],
+        "step_ms": [r[0] * 1e3 for r in runs], "warmup_ms": t_warm * 1e3,
+        "peak_gib": peak / 2**30, "loss": losses, "grad_norm": gnorms,
+        "launches": launches}}), flush=True)
+    if not ok:
+        raise RuntimeError(f"training step: loss {losses} / grad_norm {gnorms} not finite "
+                           "and positive")
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        step(1 + TRAIN_STEPS)
+    report_trace(torch, prof, med, 1, "train step")
+    grads = sorted({shape[:5] for k, shape in by_shape if k == "attention"
+                    and shape[0] == 1 and shape[4] == 64})
+    del state, trainer, eng, batch
+    torch.cuda.empty_cache()
+    return launches, by_shape, grads
+
+
+# ---------------------------------------------------------------------------
+# phase 5: kernels vs plain versions through a small sample and train step
 # ---------------------------------------------------------------------------
 
 SMALL_UNET = dict(
@@ -451,7 +797,8 @@ def run_small_check(torch):
     from custom_diffusion360_torch.models.vae import VAEConfig
 
     n_ref, latent = 2, 32
-    base = EngineConfig(unet=UNetConfig(**SMALL_UNET), vae=VAEConfig(**SMALL_VAE))
+    base = EngineConfig(unet=UNetConfig(**SMALL_UNET), vae=VAEConfig(**SMALL_VAE),
+                        conditioner=small_conditioner())
     params = Engine(base, device="cpu").init_params(seed=0, dtype=torch.float32)
     params = perturb_zero_leaves(torch, params, seed=5)
     refs = make_references(torch, base.unet, n_ref, latent, "cpu")
@@ -462,7 +809,8 @@ def run_small_check(torch):
     outs = {}
     for device, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
         cfg = EngineConfig(unet=UNetConfig(**SMALL_UNET, nerf_dtype=str(dtype)[6:]),
-                           vae=VAEConfig(**SMALL_VAE), compute_dtype=str(dtype)[6:])
+                           vae=VAEConfig(**SMALL_VAE), conditioner=base.conditioner,
+                           compute_dtype=str(dtype)[6:])
         eng = Engine(cfg, device=device)
         p = _map(params, lambda x: x.to(device, dtype))
         z = eng.sample(
@@ -487,6 +835,71 @@ def run_small_check(torch):
         raise RuntimeError("small-config sample on the card disagrees with the CPU")
 
 
+SMALL_TRAIN_UNET = dict(SMALL_UNET, context_dim=64, adm_in_channels=32 + 6 * 8,
+                        nerf_chunk_size=128)
+SMALL_CLIP = dict(vocab_size=64, width=32, layers=1, heads=2, context_length=16)
+SMALL_OPEN = dict(SMALL_CLIP, layers=2, act="gelu", text_projection=True)
+
+
+def small_conditioner():
+    """Text towers of width 32 (context 64 = SMALL_TRAIN_UNET's), one V* row
+    each, size embeddings of 8 per number."""
+    from custom_diffusion360_torch.models.clip import ClipTextConfig
+    from custom_diffusion360_torch.models.conditioner import ConditionerConfig
+
+    return ConditionerConfig(clip_l=ClipTextConfig(**SMALL_CLIP),
+                             open_clip=ClipTextConfig(**SMALL_OPEN), size_outdim=8)
+
+
+def run_small_train_check(torch):
+    """One training step at image 256^2 (latent 32), 1 + 2 views, small
+    UNet, VAE and text towers: bf16 through the kernels on the card vs f32
+    through the plain versions on the CPU, from the same weights (rounded to
+    bf16 for both) and the same draws. The loss and every trainable leaf's
+    gradient must agree within SMALL_TOL of max|ref| (the loss's, and the
+    largest reference gradient of all trainable leaves)."""
+    from custom_diffusion360_torch.draws import Draws
+    from custom_diffusion360_torch.engine import Engine, EngineConfig
+    from custom_diffusion360_torch.models.unet import UNetConfig
+    from custom_diffusion360_torch.models.vae import VAEConfig
+    from custom_diffusion360_torch.train.trainer import TrainConfig, Trainer, tree_leaves
+
+    cond_cfg = small_conditioner()
+    base = EngineConfig(unet=UNetConfig(**SMALL_TRAIN_UNET), vae=VAEConfig(**SMALL_VAE),
+                        conditioner=cond_cfg)
+    params = Engine(base, device="cpu").init_params(seed=20, dtype=torch.float32)
+    params = _map(perturb_zero_leaves(torch, params, seed=21),
+                  lambda x: x.to(torch.bfloat16) if x.is_floating_point() else x)
+    batch = make_train_batch(torch, base, 1, 2, 256, "cpu", seed=22,
+                             ids=(1, 5, None, SMALL_CLIP["vocab_size"] - 1))
+    outs = {}
+    for device, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        cfg = EngineConfig(unet=UNetConfig(**SMALL_TRAIN_UNET), vae=VAEConfig(**SMALL_VAE),
+                           conditioner=cond_cfg, compute_dtype=str(dtype)[6:])
+        trainer = Trainer(Engine(cfg, device=device), TrainConfig())
+        state = trainer.init_state(
+            _map(params, lambda x: x.to(device, dtype) if x.is_floating_point() else x.to(device)))
+        b = {k: v.to(device) for k, v in batch.items()}
+        state, metrics = trainer.train_step(state, b, Draws(torch.Generator().manual_seed(23)))
+        grads = [leaf.grad.float().cpu() for lab, leaf in zip(tree_leaves(trainer.labels),
+                                                               tree_leaves(state.params))
+                 if lab != "frozen"]
+        outs[device] = ({k: float(v) for k, v in metrics.items()}, grads)
+    (m_ref, g_ref), (m_got, g_got) = outs["cpu"], outs["cuda"]
+    loss_err = abs(m_got["loss"] - m_ref["loss"])
+    loss_tol = SMALL_TOL * abs(m_ref["loss"])
+    g_scale = max(float(g.abs().max()) for g in g_ref)
+    g_err = max(float((a - b).abs().max()) for a, b in zip(g_got, g_ref))
+    ok = loss_err <= loss_tol and g_err <= SMALL_TOL * g_scale and g_scale > 0
+    log(f"[small-train] loss cuda-bf16 {m_got['loss']:.6f} vs cpu-f32 {m_ref['loss']:.6f} "
+        f"(err {loss_err:.3e}, tol {loss_tol:.3e}); grad_norm {m_got['grad_norm']:.6f} vs "
+        f"{m_ref['grad_norm']:.6f}; {len(g_ref)} trainable leaves, max-abs gradient err "
+        f"{g_err:.3e} (tol {SMALL_TOL * g_scale:.3e} = {SMALL_TOL} x max|ref| {g_scale:.3e}) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("small-config training step on the card disagrees with the CPU")
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -505,11 +918,14 @@ def main():
     sys.path.insert(0, REPO)
     from custom_diffusion360_torch.ops import _build
     from custom_diffusion360_torch.ops.block_attention import attention_fwd
-    from custom_diffusion360_torch.ops.onehot_sample import bilinear_sample
+    from custom_diffusion360_torch.ops.norms import group_norm_fused, layer_norm_fused
+    from custom_diffusion360_torch.ops.onehot_sample import bilinear_sample, bilinear_sample_bwd
 
+    t_start = time.time()
     log(gpu_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    DT.update({"bf16": torch.bfloat16, "f32": torch.float32})
     log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
@@ -528,32 +944,46 @@ def main():
     check_attention(torch, results)
     check_bilinear(torch, results)
     failed = [r["name"] for r in results if not r["ok"]]
-
     if failed:
         print(f"chip_smoke: kernels disagree with their plain versions: {failed}",
               file=sys.stderr)
         return 1
 
-    counters = {"attention": attention_fwd, "bilinear": bilinear_sample}
-    launches, by_shape = run_main_path(torch, counters)
+    counters = {"attention": attention_fwd, "bilinear": bilinear_sample,
+                "bilinear_bwd": bilinear_sample_bwd, "layer_norm": layer_norm_fused,
+                "group_norm": group_norm_fused}
+    paths = {"sample": run_main_path(torch, counters)}
+    launches, by_shape, grad_shapes = run_train_path(torch, counters)
+    paths["train"] = (launches, by_shape)
+    check_launched(torch, results, {key for _, shapes in paths.values() for key in shapes})
+    time_attention_backward(torch, grad_shapes)
     run_small_check(torch)
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        print(f"chip_smoke: main path never launched {missing}", file=sys.stderr)
-        return 1
-    unchecked = sorted(set(by_shape) - {r["_key"] for r in results})
-    if unchecked:
-        print(f"chip_smoke: main path launched shapes with no kernel check {unchecked}",
+    run_small_train_check(torch)
+
+    failed = [r["name"] for r in results if not r["ok"]]
+    if failed:
+        print(f"chip_smoke: kernels disagree with their plain versions: {failed}",
               file=sys.stderr)
         return 1
+    # the sampling path is inference: it runs no backward kernel
+    expected = {"sample": set(counters) - {"bilinear_bwd"}, "train": set(counters)}
+    for path, (launches, _) in paths.items():
+        missing = sorted(k for k in expected[path] if launches[k] == 0)
+        if missing:
+            print(f"chip_smoke: the {path} path never launched {missing}", file=sys.stderr)
+            return 1
     for r in results:
-        r["launches"] = by_shape.get(r.pop("_key"), 0)
+        key = r.pop("_key")
+        per_path = {path: shapes.get(key, 0) for path, (_, shapes) in paths.items()}
+        r["launches"] = sum(per_path.values())
+        r["launches_by_path"] = per_path
         r.pop("ok")
-    # shapes the 1024^2 main path does not launch (512^2, kv_len masking, the
+    # shapes no main path launches (512^2 sampling, kv_len masking, the
     # unpadded scalar path) are checked and timed all the same
     print(json.dumps({"off_path_kernel_checks": [r for r in results if not r["launches"]]}),
           flush=True)
     print(json.dumps({"kernels": [r for r in results if r["launches"]]}), flush=True)
+    log(f"[done] wall {time.time() - t_start:.1f} s")
     log(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """EDM preconditioning scaling sigma -> (c_skip, c_out, c_in, c_noise)
-(port of ``eps_scaling`` from custom_diffusion360_tpu/diffusion/scaling.py,
-the one SDXL uses; the EDM and v scalings are not ported yet)."""
+and the training loss weighting (port of ``eps_scaling`` and
+``eps_weighting`` from custom_diffusion360_tpu/diffusion/scaling.py, the
+ones SDXL uses; the EDM and v variants are not ported yet)."""
 from __future__ import annotations
 
 import torch
@@ -12,3 +13,7 @@ def eps_scaling(sigma):
     c_in = 1.0 / torch.sqrt(sigma**2 + 1.0)
     c_noise = sigma
     return c_skip, c_out, c_in, c_noise
+
+
+def eps_weighting(sigma):
+    return sigma**-2.0

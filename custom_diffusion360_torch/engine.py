@@ -1,13 +1,20 @@
-"""Sampling engine (port of the inference half of custom_diffusion360_tpu/
-engine.py): UNet + denoiser + guider + Euler-EDM + VAE decode.
+"""Diffusion engine (port of custom_diffusion360_tpu/engine.py): UNet +
+denoiser + conditioner + VAE, composed into the training loss and the
+sampler.
+
+``Engine.training_loss`` is one training forward: VAE-encode the target
+and reference images (frozen, no gradient), run the text conditioner with
+the reference rows after the target rows, noise, denoise through the
+dual-stream UNet and return the lambda-weighted loss with its terms. Its
+random draws come from a ``draws.Draws``.
 
 ``Engine.sample`` renders the FeatureNeRF pose blocks once, at step 0, and
 feeds the rendered features to the remaining steps as ``nerf_caches`` (exact
 at eval: the rays are deterministic), with the text cross-attention K/V
-hoisted out of the loop. Randomness enters only as the ``noise`` tensor.
-Training, the conditioner (text encoders) and the other samplers and
-guiders are not ported yet: ``cond``/``uc`` come in as tensors of the
-conditioner's output shapes, crossattn (B, 77, 2048) and vector (B, 2816).
+hoisted out of the loop. Randomness enters only as the ``noise`` tensor;
+``cond``/``uc`` come in as tensors of the conditioner's output shapes,
+crossattn (B, 77, 2048) and vector (B, 2816). The other samplers and
+guiders are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,19 +26,23 @@ import torch
 from . import resolve_device
 from .diffusion.denoiser import Denoiser
 from .diffusion.discretization import legacy_ddpm_sigmas
+from .diffusion.loss import DiffusionLossConfig, combine_losses, diffusion_loss_img_ref
 from .diffusion.sampling import euler_edm_sample, to_d
 from .geometry.cameras import Cameras
+from .models.conditioner import ConditionerConfig, apply_conditioner, init_conditioner_params
 from .models.nerf import CompactRefTokens
 from .models.nn import torch_dtype
 from .models.transformer import fuse_attention_params
 from .models.unet import UNetConfig, init_unet_params, precompute_context_kv, unet_apply
-from .models.vae import VAEConfig, decode_first_stage, init_vae_params
+from .models.vae import VAEConfig, decode_first_stage, encode_first_stage, init_vae_params
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     unet: UNetConfig = UNetConfig()
     vae: VAEConfig = VAEConfig()
+    conditioner: ConditionerConfig = ConditionerConfig()
+    loss: DiffusionLossConfig = DiffusionLossConfig()
     num_sample_steps: int = 50
     compute_dtype: str = "float32"
 
@@ -45,32 +56,95 @@ class Engine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.denoiser = Denoiser(device=self.device)
+        # ascending training sigma grids of the target and the references
+        self.sigmas_cubic = legacy_ddpm_sigmas(cfg.loss.num_idx, self.device,
+                                               append_zero=False, flip=True)
+        self.sigmas_discrete = legacy_ddpm_sigmas(cfg.loss.num_idx_ref, self.device,
+                                                  append_zero=False, flip=True)
 
     def init_params(self, seed: int = 0, dtype=None):
-        """Seeded random {"unet", "vae"} parameters on the engine's device
-        (in the compute dtype unless ``dtype`` is given)."""
+        """Seeded random {"unet", "vae", "conditioner"} parameters on the
+        engine's device (in the compute dtype unless ``dtype`` is given)."""
         dtype = self.cfg.dtype if dtype is None else dtype
         return {
             "unet": init_unet_params(self.cfg.unet, seed, self.device, dtype),
             "vae": init_vae_params(self.cfg.vae, seed + 1, self.device, dtype),
+            "conditioner": init_conditioner_params(self.cfg.conditioner, seed + 2,
+                                                   self.device, dtype),
         }
 
     @torch.inference_mode()
     def decode_first_stage(self, params, z):
         return decode_first_stage(params["vae"], z, self.cfg.vae)
 
-    def network_fn(self, params, cams: Optional[Cameras], *, nerf_caches=None,
-                   ref_features=None, ctx_kv=None):
-        """network(x, t, cond) -> (eps, aux), the callable the Denoiser wraps."""
+    def encode_first_stage(self, params, x, eps=None):
+        """Images (B, H, W, 3) in [-1, 1] -> scaled f32 latents, the VAE in
+        the compute dtype, without gradient; eps: the posterior's draws."""
+        z = encode_first_stage(params["vae"], x.to(self.device, self.cfg.dtype), self.cfg.vae,
+                               eps=eps)
+        return z.float()
 
-        def network(x, t, cond):
+    def latent_shape(self, images_shape):
+        f = 2 ** (len(self.cfg.vae.ch_mult) - 1)
+        n, h, w = images_shape[:3]
+        return (n, h // f, w // f, self.cfg.vae.z_channels)
+
+    def network_fn(self, params, cams: Optional[Cameras], mask_ref=None, *, nerf_caches=None,
+                   ref_features=None, ctx_kv=None, draws=None):
+        """network(x, t, cond, input_ref=, sigmas_ref=) -> (eps, aux), the
+        callable the Denoiser wraps; ``draws`` makes the renders stochastic
+        (training)."""
+
+        def network(x, t, cond, input_ref=None, sigmas_ref=None):
             return unet_apply(
                 params["unet"], self.cfg.unet, x, t, cond["crossattn"], cond["vector"],
                 cams=cams, nerf_caches=nerf_caches, ref_features=ref_features,
-                ctx_kv=ctx_kv, compute_dtype=self.cfg.dtype,
+                ctx_kv=ctx_kv, compute_dtype=self.cfg.dtype, input_ref=input_ref,
+                sigmas_ref=sigmas_ref, mask_ref=mask_ref, draws=draws,
             )
 
         return network
+
+    def training_loss(self, params, batch, global_step: int, draws):
+        """One training forward -> (scalar loss, metrics).
+
+        batch: image (B, H, W, 3) in [-1, 1]; image_ref (B, N, H, W, 3); mask
+        (B, h, w, 1) latent-res; mask_ref (B, N, Hi, Wi, 1) or None; opacity
+        (B, Hi, Wi, 1); drop_im (B,); cams: Cameras (B, 1 + N); token ids
+        tokens_clip / tokens_open (B, T) and their ``_ref`` rows (B * N, T);
+        size tuples original_size, crop_coords, target_size (B, 2) and
+        their ``_ref`` rows. draws: a ``draws.Draws`` for vae_eps,
+        vae_eps_ref, the loss's draws and the renders' (``nerf/...``).
+        """
+        x_rgb = batch["image"].to(self.device)
+        x = self.encode_first_stage(
+            params, x_rgb, draws.normal("vae_eps", self.latent_shape(x_rgb.shape), self.device))
+        input_ref = None
+        if batch.get("image_ref") is not None:
+            ir = batch["image_ref"].to(self.device)
+            b, n = ir.shape[:2]
+            ir = ir.reshape((b * n,) + tuple(ir.shape[2:]))
+            zr = self.encode_first_stage(
+                params, ir, draws.normal("vae_eps_ref", self.latent_shape(ir.shape), self.device))
+            zr = zr.reshape((b, n) + tuple(zr.shape[1:]))
+            # reg-image dropout zeroes the reference latents
+            input_ref = batch["drop_im"].to(self.device).float().reshape(b, 1, 1, 1, 1) * zr
+
+        cond = apply_conditioner(params["conditioner"], batch, self.cfg.conditioner, ref=True)
+        cams = batch.get("cams")
+        mask_ref = batch.get("mask_ref")
+        network = self.network_fn(
+            params, None if cams is None else cams.to(self.device),
+            None if mask_ref is None else mask_ref.to(self.device), draws=draws)
+        mask = batch.get("mask")
+        terms = diffusion_loss_img_ref(
+            self.denoiser, network, cond, x, x_rgb, input_ref,
+            None if mask is None else mask.to(self.device), batch["opacity"].to(self.device),
+            draws=draws, sigmas_cubic=self.sigmas_cubic, sigmas_discrete=self.sigmas_discrete,
+            cfg=self.cfg.loss,
+        )
+        return combine_losses(terms, batch["drop_im"].to(self.device), global_step,
+                              cfg=self.cfg.loss, rgb_predict=self.cfg.unet.rgb_predict)
 
     def build_ref_features(self, references, choices, batch_size, num_copies):
         """Per-block reference tokens from delta-checkpoint buffers

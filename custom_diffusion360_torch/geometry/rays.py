@@ -1,6 +1,7 @@
 """Patch rays, Plücker coordinates, NeRF positional encoding and frame
-transforms (port of custom_diffusion360_tpu/geometry/rays.py, eval path:
-the stratified jitter of training is not ported yet)."""
+transforms (port of custom_diffusion360_tpu/geometry/rays.py). The
+stratified jitter of training takes its uniforms from a ``draws.Draws``
+(names ``ray_x``, ``ray_y``: one (res + 1,) draw per axis)."""
 from __future__ import annotations
 
 import math
@@ -10,20 +11,35 @@ import torch
 from .cameras import Cameras, camera_center, unproject_ndc_points
 
 
-def get_patch_ray_grid(resolution: int, device="cpu"):
-    """(hw, 2) pixel-center NDC positions (x, y), running +1 -> -1 on both
-    axes, flattened row-major (token order = image row order)."""
+def _edge_jitter(u, edges):
+    """Positions jittered uniformly inside each cell by the uniforms u
+    (shaped like edges): one shared 1-D jitter per axis."""
+    center = (edges[1:] + edges[:-1]) / 2.0
+    upper = torch.cat([center, edges[-1:]])
+    lower = torch.cat([edges[:1], center])
+    return (lower + (upper - lower) * u)[:-1]
+
+
+def get_patch_ray_grid(resolution: int, device="cpu", draws=None):
+    """(hw, 2) NDC positions (x, y), running +1 -> -1 on both axes,
+    flattened row-major (token order = image row order): pixel centers, or
+    with ``draws`` positions jittered inside each pixel."""
     edges = torch.linspace(1.0, -1.0, resolution + 1, device=device)
-    xs = (edges[:-1] + edges[1:]) / 2.0
+    if draws is not None:
+        xs = _edge_jitter(draws.uniform("ray_x", edges.shape, device), edges)
+        ys = _edge_jitter(draws.uniform("ray_y", edges.shape, device), edges)
+    else:
+        xs = ys = (edges[:-1] + edges[1:]) / 2.0
     gx = xs[None, :].expand(resolution, resolution)
-    gy = xs[:, None].expand(resolution, resolution)
+    gy = ys[:, None].expand(resolution, resolution)
     return torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
 
 
-def get_patch_rays(cams: Cameras, resolution: int):
-    """World-space rays through every pixel center of every camera.
-    cams batch (...); returns (rays (..., hw, 6) = (origin, unit dir), xys)."""
-    xys = get_patch_ray_grid(resolution, device=cams.R.device)
+def get_patch_rays(cams: Cameras, resolution: int, draws=None):
+    """World-space rays through every pixel of every camera (stratified
+    inside each pixel when ``draws`` is given). cams batch (...); returns
+    (rays (..., hw, 6) = (origin, unit dir), xys)."""
+    xys = get_patch_ray_grid(resolution, device=cams.R.device, draws=draws)
     hw = xys.shape[0]
     xy_depth = torch.cat([xys, torch.ones((hw, 1), device=xys.device)], -1)
     xy_depth = xy_depth.expand(tuple(cams.batch_shape) + (hw, 3))

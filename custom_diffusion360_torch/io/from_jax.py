@@ -4,7 +4,11 @@
 example ``jax.tree.map(np.asarray, params)``) and returns the port's nested
 dicts/lists of tensors under the same keys. Linear weights keep their
 (in, out) layout; conv kernels (4-D ``"w"`` leaves) go from JAX's HWIO to
-torch's OIHW. Nothing here imports JAX.
+torch's OIHW; every other leaf (embeddings, ``modifier_rows``, positional
+embeddings, the stacked text blocks, ``text_projection``, norms) is copied
+as it is. So a whole JAX ``Engine.init_params`` tree ({"unet", "vae",
+"conditioner"}, the VAE encoder and ``quant_conv`` included) carries across.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 

@@ -1,12 +1,17 @@
-"""FeatureNeRF pose blocks, eval path (port of custom_diffusion360_tpu/
-models/nerf.py): ray-march the target camera, sample the reference-view
-feature maps at the projected ray points, predict density and features with
-small MLPs; the caller volume-renders.
+"""FeatureNeRF pose blocks (port of custom_diffusion360_tpu/models/nerf.py):
+ray-march the target camera, sample the reference-view feature maps at the
+projected ray points, predict density and features with small MLPs; the
+caller volume-renders.
 
 Only the split/commuted encoding the TPU package runs in production is
 ported (``nerf_encoding_split``; see the JAX module for the algebra). The
-stochastic training branches (stratified jitter, the importance coin flip)
-and per-row reference masks are not ported yet.
+reference tokens are either delta-buffer ``CompactRefTokens`` (sampling) or
+dense (B, N, hw, C) tokens from the live reference stream (training), which
+take a per-row ``mask_ref``. Training adds the stochastic branches
+(stratified patch rays and lengths, the importance jitter and the
+stratified-vs-importance coin), each draw named in a ``draws.Draws``, and
+rematerializes each ray chunk on backward (torch.utils.checkpoint, as
+``jax.checkpoint`` in the JAX scan).
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..geometry.cameras import Cameras, transform_points_ndc
 from ..geometry.rays import (
@@ -28,7 +34,7 @@ from ..geometry.rays import (
 )
 from ..ops.onehot_sample import bilinear_sample
 from ..ops.sample_pdf import sample_pdf
-from .nn import Init, linear, linear_init, silu, torch_dtype
+from .nn import Init, linear, linear_init, nearest_resize_tokens, silu, torch_dtype
 
 # the sampled map channels [l1 plane rows | nviews row] are padded to this
 # multiple so each channel row is 16-byte aligned for the bilinear kernel's
@@ -45,6 +51,7 @@ class NerfConfig:
     num_freqs: int = 16
     rgb_predict: bool = True
     average: bool = False
+    stratified: bool = True
     imp_sampling_percent: float = 0.9
     chunk_size: int = 512
     chunk_rows_ref: int = 2
@@ -81,13 +88,25 @@ def init_nerf_params(init: Init, cfg: NerfConfig):
 
 
 # ---------------------------------------------------------------------------
-# ray marcher, eval path
+# ray marcher
 # ---------------------------------------------------------------------------
 
 
 def _length_edges(cfg: NerfConfig, device):
     return torch.linspace(cfg.near_plane, cfg.total_far, cfg.num_samples + 1,
                           dtype=torch.float32, device=device)
+
+
+def _stratified_lengths(cfg: NerfConfig, batch, num_rays, device, draws):
+    """(lengths, dists) (B, hw, S): bin centers jittered by the (B, hw,
+    S + 1) uniforms ``strat``."""
+    edges = _length_edges(cfg, device)
+    center = (edges[1:] + edges[:-1]) / 2.0
+    upper = torch.cat([center, edges[-1:]])
+    lower = torch.cat([edges[:1], center])
+    t = draws.uniform("strat", (batch, num_rays, cfg.num_samples + 1), device)
+    jittered = lower + (upper - lower) * t
+    return (jittered[..., :-1] + jittered[..., 1:]) / 2.0, jittered[..., 1:] - jittered[..., :-1]
 
 
 def _uniform_lengths(cfg: NerfConfig, batch, num_rays, device):
@@ -115,10 +134,11 @@ def _resize_weights(src: int, dst: int, device):
     return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
-def _importance_lengths(cfg: NerfConfig, prev_weights, num_rays):
+def _importance_lengths(cfg: NerfConfig, prev_weights, num_rays, draws=None):
     """Inverse-CDF depths from the previous block's uniform render weights
     prev_weights (B, hw_prev, S, 1); resized (antialiased bilinear) when the
-    previous block ran at another resolution."""
+    previous block ran at another resolution. With ``draws`` the quantiles
+    are jittered inside their 1/S bins by the (B, hw, S) uniforms ``imp``."""
     s = cfg.num_samples
     cdf = prev_weights[..., 0] + 0.01
     b, hw_prev = cdf.shape[:2]
@@ -136,6 +156,8 @@ def _importance_lengths(cfg: NerfConfig, prev_weights, num_rays):
 
     edges = _length_edges(cfg, cdf.device).expand(b, num_rays, s + 1)
     u = (torch.arange(s, dtype=torch.float32, device=cdf.device) * (1.0 / s)).expand(b, num_rays, s)
+    if draws is not None:
+        u = u + draws.uniform("imp", (b, num_rays, s), cdf.device) * (1.0 / s)
     depths = sample_pdf(edges, pdf, u)
     dists = torch.cat(
         [depths[..., 1:] - depths[..., :-1], edges[..., -1:] - depths[..., -1:]], dim=-1
@@ -144,24 +166,39 @@ def _importance_lengths(cfg: NerfConfig, prev_weights, num_rays):
 
 
 def raymarch(cams: Cameras, resolution: int, cfg: NerfConfig, prev_weights=None,
-             imp_sample_next_step: bool = False):
-    """Target rays and sample points, eval path. cams: (B, N+1), camera 0 the
-    target. Returns dict(rays (B, N+1, hw, 6), ray_points (B, hw, S, 3),
-    dists (B, hw, S), ray_points_uniform, dists_uniform (or None))."""
-    rays, _ = get_patch_rays(cams, resolution)
+             imp_sample_next_step: bool = False, draws=None):
+    """Target rays and sample points. cams: (B, N+1), camera 0 the target.
+    ``draws`` (training) draws the coin that takes stratified lengths
+    instead of importance ones with probability 1 - imp_sampling_percent,
+    and with cfg.stratified also jitters the patch rays and the lengths.
+    Returns dict(rays (B, N+1, hw, 6), ray_points (B, hw, S, 3), dists
+    (B, hw, S), ray_points_uniform, dists_uniform (or None)), all without
+    gradient."""
+    jitter = draws if cfg.stratified else None
+    rays, _ = get_patch_rays(cams, resolution, draws=jitter)
     b = rays.shape[0]
     num_rays = resolution * resolution
+    dev = rays.device
+
+    def stratified():
+        if jitter is None:
+            return _uniform_lengths(cfg, b, num_rays, dev)
+        return _stratified_lengths(cfg, b, num_rays, dev, jitter)
+
     if prev_weights is None or cfg.imp_sampling_percent <= 0:
-        lengths, dists = _uniform_lengths(cfg, b, num_rays, rays.device)
+        lengths, dists = stratified()
+    elif draws is not None and bool(draws.uniform("coin", (), dev)
+                                    < 1.0 - cfg.imp_sampling_percent):
+        lengths, dists = stratified()
     else:
-        lengths, dists = _importance_lengths(cfg, prev_weights, num_rays)
+        lengths, dists = _importance_lengths(cfg, prev_weights, num_rays, jitter)
     target_rays = rays[:, 0]
     ray_points = ray_points_from_rays(target_rays, lengths)
     ray_points_uniform = dists_uniform = None
     if imp_sample_next_step:
-        lengths_u, dists_uniform = _uniform_lengths(cfg, b, num_rays, rays.device)
+        lengths_u, dists_uniform = _uniform_lengths(cfg, b, num_rays, dev)
         ray_points_uniform = ray_points_from_rays(target_rays, lengths_u)
-    return dict(rays=rays, ray_points=ray_points, dists=dists,
+    return dict(rays=rays.detach(), ray_points=ray_points.detach(), dists=dists.detach(),
                 ray_points_uniform=ray_points_uniform, dists_uniform=dists_uniform)
 
 
@@ -196,6 +233,17 @@ class CompactRefTokens:
         return torch.cat([z, s], dim=0)
 
 
+def apply_ref_mask(xref, mask_ref):
+    """Zero the padded regions of dense reference tokens xref (B, N, hw, C)
+    by mask_ref (B, N, Hm, Wm), nearest-resized to the token grid."""
+    if mask_ref is None:
+        return xref
+    b, n, hw, _ = xref.shape
+    m = mask_ref.reshape(b, n, -1, 1).to(xref.dtype)
+    m = nearest_resize_tokens(m, math.isqrt(m.shape[2]), math.isqrt(hw))
+    return xref * m
+
+
 def _l1_row_splits(cfg: NerfConfig):
     """l1 rows by mlp_in segment: [plane (C), pe_pts_view (6nf), pts_view (3),
     pe_cam_inview (6nf), cam_inview_dir (3)]."""
@@ -210,12 +258,12 @@ def _nviews_row_splits(cfg: NerfConfig):
     return c, c + pe + 3, c + pe + 6 + pe
 
 
-def project_ref_maps(params, xref, cfg: NerfConfig):
+def project_ref_maps(params, xref, cfg: NerfConfig, mask_ref=None):
     """Per-block projection of the reference maps by the plane-feature rows
-    of l1 and nviews. xref: CompactRefTokens of (B, N, HW, C) tokens.
-    Returns (B, N, HW, Cp) = [l1-projected (C) | nviews-projected (1) |
-    zeros], Cp the C + 1 channels (C without nviews) rounded up to
-    CHANNEL_ALIGN; readers slice the first C + 1."""
+    of l1 and nviews. xref: CompactRefTokens, or dense (B, N, HW, C) tokens
+    (masked by ``mask_ref`` first). Returns (B, N, HW, Cp) = [l1-projected
+    (C) | nviews-projected (1) | zeros], Cp the C + 1 channels (C without
+    nviews) rounded up to CHANNEL_ALIGN; readers slice the first C + 1."""
     cdt = cfg.cdtype
     c = cfg.dim
     width = c + (0 if cfg.average else 1)
@@ -229,6 +277,10 @@ def project_ref_maps(params, xref, cfg: NerfConfig):
             parts.append(x.new_zeros(tuple(x.shape[:-1]) + (pad,)))
         return torch.cat(parts, dim=-1)
 
+    if not isinstance(xref, CompactRefTokens):
+        return proj(apply_ref_mask(xref.float(), mask_ref).to(cdt))
+    if mask_ref is not None:
+        raise ValueError("mask_ref needs dense reference tokens")
     n = xref.chosen.shape[0]
     g_chosen = proj(xref.chosen.float().to(cdt))
     g_zero = proj(xref.zero.float().to(cdt))
@@ -361,31 +413,39 @@ def effective_chunk(chunk: int, rows: int, chunk_rows_ref: int, hw: int) -> int:
 
 
 def nerfsd_apply(params, cams: Cameras, xref, cfg: NerfConfig, prev_weights=None,
-                 imp_sample_next_step: bool = False):
-    """Ray-march + encode, eval path. xref: CompactRefTokens of (B, N, hw,
-    C) tokens. Returns dict(features, sigma, dists, rgb,
+                 imp_sample_next_step: bool = False, mask_ref=None, draws=None):
+    """Ray-march + encode. xref: CompactRefTokens or dense (B, N, hw, C)
+    tokens; mask_ref (B, N, Hm, Wm) masks dense tokens; draws: the
+    training draws (raymarch). Returns dict(features, sigma, dists, rgb,
     sigma_uniform, dists_uniform), per-point shapes (B, hw, S, *), f32.
-    Rays stream through the encoding in chunks of effective_chunk rays."""
+    Rays stream through the encoding in chunks of effective_chunk rays;
+    with autograd on, each chunk is recomputed on backward instead of
+    keeping its activations. The uniform-grid density pass runs without
+    gradient."""
     resolution = math.isqrt(xref.shape[2])
     march = raymarch(cams, resolution, cfg, prev_weights=prev_weights,
-                     imp_sample_next_step=imp_sample_next_step)
-    proj = project_ref_maps(params, xref, cfg)
+                     imp_sample_next_step=imp_sample_next_step, draws=draws)
+    proj = project_ref_maps(params, xref, cfg, mask_ref)
     geo_ray, logit_ray = ray_shared_terms(params, cams, march["rays"], cfg)
+
+    def run(points, gr, lr, sigma_only):
+        return nerf_encoding_split(params, cams, proj, gr, lr, points, cfg,
+                                   sigma_only=sigma_only)[0].float()
 
     def encode(points, sigma_only=False):
         hw = points.shape[1]
         chunk = effective_chunk(cfg.chunk_size, points.shape[0], cfg.chunk_rows_ref, hw)
         if not chunk or hw <= chunk:
-            return nerf_encoding_split(params, cams, proj, geo_ray, logit_ray,
-                                       points, cfg, sigma_only=sigma_only)[0].float()
+            return run(points, geo_ray, logit_ray, sigma_only)
         outs = []
         for start in range(0, hw, chunk):
             sl = slice(start, start + chunk)
-            lr = None if logit_ray is None else logit_ray[:, :, sl]
-            outs.append(nerf_encoding_split(
-                params, cams, proj, geo_ray[:, :, sl], lr, points[:, sl], cfg,
-                sigma_only=sigma_only,
-            )[0].float())
+            args = (points[:, sl], geo_ray[:, :, sl],
+                    None if logit_ray is None else logit_ray[:, :, sl], sigma_only)
+            if torch.is_grad_enabled():
+                outs.append(checkpoint(run, *args, use_reentrant=False))
+            else:
+                outs.append(run(*args))
         return torch.cat(outs, dim=1)
 
     out = encode(march["ray_points"])
@@ -397,7 +457,8 @@ def nerfsd_apply(params, cams: Cameras, xref, cfg: NerfConfig, prev_weights=None
         features = features[..., :-3]
     sigma_uniform = dists_uniform = None
     if imp_sample_next_step:
-        sigma_uniform = encode(march["ray_points_uniform"], sigma_only=True)
+        with torch.no_grad():
+            sigma_uniform = encode(march["ray_points_uniform"], sigma_only=True)
         dists_uniform = march["dists_uniform"][..., None]
     return dict(features=features, sigma=sigma, dists=march["dists"][..., None],
                 rgb=rgb, sigma_uniform=sigma_uniform, dists_uniform=dists_uniform)

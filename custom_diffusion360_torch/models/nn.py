@@ -5,7 +5,9 @@ Conventions: linear weights are stored (in, out) so application is
 ``x @ w``; conv kernels are OIHW and activations NHWC at the function
 boundary (the conv runs on the channels-last NCHW view of the NHWC tensor,
 so no layout copy is made); normalization statistics are float32 whatever
-the activation dtype.
+the activation dtype. On CUDA tensors the norms run the LayerNorm and
+GroupNorm(+SiLU) kernels (ops/norms.py), which raise on what they do not
+take; on CPU tensors they are the plain PyTorch forms below.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..ops.norms import group_norm_fused, layer_norm_fused
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -112,9 +116,12 @@ def conv2d(p, x, stride=1, padding="SAME"):
 
 
 def group_norm(p, x, num_groups=32, eps=1e-6):
-    """x: (N, ..., C) channels-last; per-sample, per-group statistics in f32
-    from one pass of per-channel moments (E[x^2] - E[x]^2, as the JAX
-    version), then y = x * a + b in the activation dtype."""
+    """x: (N, ..., C) channels-last; per-sample, per-group statistics in f32.
+    CUDA: the GroupNorm kernel. CPU: one pass of per-channel moments
+    (E[x^2] - E[x]^2, as the JAX version), then y = x * a + b in the
+    activation dtype."""
+    if x.is_cuda:
+        return group_norm_fused(x.contiguous(), p["scale"], p["bias"], num_groups, eps)
     orig_dtype = x.dtype
     n, c = x.shape[0], x.shape[-1]
     cg = c // num_groups
@@ -135,11 +142,18 @@ def group_norm(p, x, num_groups=32, eps=1e-6):
 
 
 def group_norm_silu(p, x, num_groups=32, eps=1e-6):
+    """silu(group_norm(x)); one fused kernel on CUDA."""
+    if x.is_cuda:
+        return group_norm_fused(x.contiguous(), p["scale"], p["bias"], num_groups, eps,
+                                act="silu")
     return F.silu(group_norm(p, x, num_groups, eps))
 
 
 def layer_norm(p, x, eps=1e-5):
-    """LayerNorm over the last axis, computed in f32, cast back."""
+    """LayerNorm over the last axis, computed in f32, cast back. CUDA: the
+    LayerNorm kernel."""
+    if x.is_cuda:
+        return layer_norm_fused(x.contiguous(), p["scale"], p["bias"], eps)
     c = x.shape[-1]
     y = F.layer_norm(x.float(), (c,), p["scale"].float(), p["bias"].float(), eps)
     return y.to(x.dtype)
@@ -167,10 +181,34 @@ def timestep_embedding(t, dim, max_period=10000.0):
     return emb
 
 
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(x.clamp(-15.0, 15.0))
+
+
 def trunc_exp(x):
-    """exp; the truncated gradient of the JAX version matters only for
-    training, which is not ported yet."""
-    return torch.exp(x)
+    """exp with the gradient of exp(clip(x, -15, 15)) (JAX: the custom VJP
+    of models/nn.trunc_exp; reference attention.py:192-210)."""
+    return _TruncExp.apply(x)
+
+
+def nearest_resize_tokens(x, src_res: int, dst_res: int):
+    """(..., src*src, C) -> (..., dst*dst, C) nearest neighbour (torch
+    F.interpolate mode='nearest' semantics: floor(idx * src/dst))."""
+    if src_res == dst_res:
+        return x
+    idx = torch.floor(torch.arange(dst_res, dtype=torch.float32)
+                      * (src_res / dst_res)).long().to(x.device)
+    img = x.reshape(tuple(x.shape[:-2]) + (src_res, src_res, x.shape[-1]))
+    img = img.index_select(-3, idx).index_select(-2, idx)
+    return img.reshape(tuple(x.shape[:-2]) + (dst_res * dst_res, x.shape[-1]))
 
 
 def upsample_nearest_2x(x):

@@ -1,12 +1,16 @@
 """Spatial transformer stack with FeatureNeRF pose conditioning (port of
-custom_diffusion360_tpu/models/transformer.py, inference path).
+custom_diffusion360_tpu/models/transformer.py).
 
 Blocks at depth ``d % poscontrol_interval == 0`` of image-cross transformers
-render a FeatureNeRF feature from precomputed reference tokens (delta-buffer
-``ref_features``) or take it from the render cache (``nerf_cache``) and fuse
-it into the stream through the identity-initialized ``pose_emb_layers``. The
-live reference stream of training and log_images, and the x3 guider's render
-dedupe, are not ported yet.
+render a FeatureNeRF feature and fuse it into the stream through the
+identity-initialized ``pose_emb_layers``. The render reads precomputed
+reference tokens (delta-buffer ``ref_features``, sampling), the render cache
+(``nerf_cache``), or, in training, the dense tokens of the live reference
+stream ``xr``: the reference views run the same frozen weights in lockstep,
+without gradient (``torch.no_grad``, where the JAX package stop-gradients
+them), and each pose block renders from the reference activations that
+enter it. Training uses the canonical un-fused q/k/v projections; the x3
+guider's render dedupe is not ported yet.
 """
 from __future__ import annotations
 
@@ -228,14 +232,14 @@ def init_transformer_block(init: Init, cfg: TransformerConfig, d: int):
 
 
 def _reference_attn(p, cams, context_ref, context, prev_weights,
-                    cfg: TransformerConfig, d: int):
+                    cfg: TransformerConfig, d: int, mask_ref=None, draws=None):
     """NeRF render + text cross-attention on the per-point features + volume
     render. Returns (rendered (B, hw, C) f32, fg_mask, prev_weights, alphas,
     rgb)."""
     nerf_out = nerfsd_apply(
         p["pose_featurenerf"], cams, context_ref, cfg.nerf,
         prev_weights=prev_weights if cfg.use_prev_weights_imp_sample else None,
-        imp_sample_next_step=cfg.block_imp_sample_next(d),
+        imp_sample_next_step=cfg.block_imp_sample_next(d), mask_ref=mask_ref, draws=draws,
     )
     cdt = cfg.nerf.cdtype
     feats = nerf_out["features"]  # (B, hw, S, C) f32
@@ -260,12 +264,14 @@ def _reference_attn(p, cams, context_ref, context, prev_weights,
 
 def transformer_block_apply(p, x, context, cfg: TransformerConfig, d: int, *,
                             context_ref=None, cams: Optional[Cameras] = None,
-                            prev_weights=None, nerf_cache=None, ctx_kv=None):
+                            prev_weights=None, nerf_cache=None, ctx_kv=None,
+                            mask_ref=None, draws=None):
     """One BasicTransformerBlock step. x: (B, hw, C). context_ref: reference
-    tokens for the render (CompactRefTokens); nerf_cache: a
-    rendered feature (B, hw, C) replacing the render; ctx_kv: precomputed
-    text (k, v). Returns (x, aux) with aux = dict(fg_mask, prev_weights,
-    alphas, rgb, rendered)."""
+    tokens for the render (CompactRefTokens, or dense (B, N, hw, C) from the
+    reference stream, masked by ``mask_ref``); nerf_cache: a rendered
+    feature (B, hw, C) replacing the render; ctx_kv: precomputed text (k,
+    v); draws: the render's training draws. Returns (x, aux) with aux =
+    dict(fg_mask, prev_weights, alphas, rgb, rendered)."""
     x = cross_attention_apply(p["attn1"], layer_norm(p["norm1"], x), None,
                               n_heads=cfg.n_heads) + x
     x = cross_attention_apply(p["attn2"], layer_norm(p["norm2"], x), context,
@@ -280,6 +286,7 @@ def transformer_block_apply(p, x, context, cfg: TransformerConfig, d: int, *,
         else:
             rendered, fg_mask, new_prev, alphas, rgb = _reference_attn(
                 p, cams, context_ref, context.float(), prev_weights, cfg, d,
+                mask_ref=mask_ref, draws=draws,
             )
             aux.update(fg_mask=fg_mask, prev_weights=new_prev, alphas=alphas,
                        rgb=rgb, rendered=rendered)
@@ -308,26 +315,43 @@ def init_spatial_transformer(init: Init, in_channels: int, cfg: TransformerConfi
 
 def spatial_transformer_apply(p, x, context, cfg: TransformerConfig, *,
                               cams: Optional[Cameras] = None, nerf_cache=None,
-                              ref_features=None, ctx_kv=None):
+                              ref_features=None, ctx_kv=None, xr=None,
+                              context_ref=None, mask_ref=None, draws=None):
     """x: (B, H, W, C) NHWC. ref_features: {d: reference tokens} for the
     render; nerf_cache: {d: rendered feats}; ctx_kv: per-depth text (k, v).
-    Returns (x, aux) with aux = dict(fg_masks, alphas, rgbs, rendered)."""
+    Training: xr (B * Nref, H, W, C), the reference stream, run under
+    torch.no_grad with its text context ``context_ref`` (B * Nref, M, Cc);
+    each pose block at depth d renders from its dense tokens with the
+    per-row ``mask_ref`` and the draws ``draws.child(str(d))``.
+    Returns (x, xr or None, aux) with aux = dict(fg_masks, alphas, rgbs,
+    rendered)."""
     b, h, w, c = x.shape
     x_in = x
     x = group_norm(p["norm"], x).reshape(b, h * w, c)
     x = linear(p["proj_in"], x)
+    if xr is not None:
+        xr_in = xr
+        br = xr.shape[0]
+        with torch.no_grad():
+            xr = linear(p["proj_in"], group_norm(p["norm"], xr).reshape(br, h * w, c))
 
     prev_weights = None
     fg_masks, alphas_list, rgbs, rendered_out = [], [], [], {}
     for d in range(cfg.depth):
         blk = p["blocks"][d]
         kv = None if ctx_kv is None else ctx_kv[d]
+        if xr is not None:
+            with torch.no_grad():
+                xr, _ = transformer_block_apply(blk, xr, context_ref, cfg, d)
         refs = None if ref_features is None else ref_features.get(d)
+        if xr is not None and cfg.block_has_nerf(d):
+            refs = xr.reshape(b, br // b, h * w, -1)
         cache = None if nerf_cache is None else nerf_cache.get(d)
         if cfg.block_has_nerf(d) and (refs is not None or cache is not None):
             x, aux = transformer_block_apply(
                 blk, x, context, cfg, d, context_ref=refs, cams=cams,
                 prev_weights=prev_weights, nerf_cache=cache, ctx_kv=kv,
+                mask_ref=mask_ref, draws=None if draws is None else draws.child(str(d)),
             )
             prev_weights = aux["prev_weights"]
             if aux["fg_mask"] is not None:
@@ -342,5 +366,8 @@ def spatial_transformer_apply(p, x, context, cfg: TransformerConfig, *,
             x, _ = transformer_block_apply(blk, x, context, cfg, d, ctx_kv=kv)
 
     x = linear(p["proj_out"], x).reshape(b, h, w, c) + x_in
-    return x, dict(fg_masks=fg_masks, alphas=alphas_list, rgbs=rgbs,
-                   rendered=rendered_out)
+    if xr is not None:
+        with torch.no_grad():
+            xr = linear(p["proj_out"], xr).reshape(br, h, w, c) + xr_in
+    return x, xr, dict(fg_masks=fg_masks, alphas=alphas_list, rgbs=rgbs,
+                       rendered=rendered_out)

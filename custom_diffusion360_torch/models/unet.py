@@ -1,12 +1,14 @@
-"""SDXL UNet with FeatureNeRF pose blocks, inference path (port of
+"""SDXL UNet with FeatureNeRF pose blocks (port of
 custom_diffusion360_tpu/models/unet.py).
 
 The network is a static spec built from the config, walked by init and
 apply over a dict of tensors, as in the JAX package. NHWC activations. The
-pose blocks render from precomputed reference tokens (``ref_features``) or
-read the render cache (``nerf_caches``); the frozen live reference stream
-(``input_ref``) of training and the x3 guider's prefix dedupe are not ported
-yet.
+pose blocks render from precomputed reference tokens (``ref_features``),
+read the render cache (``nerf_caches``), or, in training, render from the
+live reference stream: the reference latents (``input_ref``) run the same
+frozen weights in lockstep under ``torch.no_grad`` with their own timestep
+embedding (the JAX package's stop-gradient ``_Stream.both``). The x3
+guider's prefix dedupe is not ported yet.
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ class UNetConfig:
     num_freqs: int = 16
     use_prev_weights_imp_sample: bool = True
     poscontrol_interval: int = 4
+    stratified: bool = True
     imp_sampling_percent: float = 0.9
     add_lora: bool = False
     nerf_chunk_size: int = 512
@@ -69,7 +72,7 @@ class UNetConfig:
             dim=dim, num_samples=self.num_samples, far_plane=self.far,
             near_plane=self.near_plane, num_freqs=self.num_freqs,
             rgb_predict=self.rgb_predict, average=self.average,
-            imp_sampling_percent=self.imp_sampling_percent,
+            stratified=self.stratified, imp_sampling_percent=self.imp_sampling_percent,
             chunk_size=self.nerf_chunk_size, compute_dtype=self.nerf_dtype,
         )
 
@@ -248,63 +251,97 @@ def precompute_context_kv(params, cfg: UNetConfig, context):
 
 def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
                nerf_caches=None, ref_features=None, ctx_kv=None,
-               compute_dtype=torch.float32):
+               compute_dtype=torch.float32, input_ref=None, sigmas_ref=None,
+               mask_ref=None, draws=None):
     """Denoising forward. x: (B, H, W, Cin) NHWC (already c_in-scaled);
     timesteps: (B,) c_noise; context: (B', 77, context_dim) and y
-    (B', adm_in) with the B target rows first. ref_features:
-    {attn_id: {depth: tokens}} for the render; nerf_caches:
-    {attn_id: {depth: rendered}} replacing it; ctx_kv: precompute_context_kv
-    output. Returns (eps in x.dtype, aux) with aux = dict(fg_mask_list,
+    (B', adm_in) with the B target rows first, then the B * Nref reference
+    rows (sample-major). ref_features: {attn_id: {depth: tokens}} for the
+    render; nerf_caches: {attn_id: {depth: rendered}} replacing it; ctx_kv:
+    precomputed text K/V. Training: input_ref (B, Nref, H, W, Cin)
+    reference latents, run without gradient at timesteps ``sigmas_ref``
+    (B,) (zeros when None); mask_ref (B, Nref, Hm, Wm); draws: the
+    renders' draws, per pose block under ``nerf/<attn_id>/<depth>/``.
+    Returns (eps in x.dtype, aux) with aux = dict(fg_mask_list,
     alphas_list, rgb_list, rendered)."""
     compute_dtype = torch_dtype(compute_dtype)
     b = x.shape[0]
     emb = _mlp2(params["time_embed"], timestep_embedding(timesteps, cfg.model_channels))
     if y is not None:
         emb = emb + _mlp2(params["label_emb"], y[:b])
+
+    hr = embr = contextr = None
+    if input_ref is not None:
+        n = input_ref.shape[1]
+        contextr = context[b:].to(compute_dtype)
+        with torch.no_grad():
+            tr = sigmas_ref if sigmas_ref is not None else torch.zeros_like(timesteps)
+            embr = _mlp2(params["time_embed"], timestep_embedding(tr, cfg.model_channels))
+            embr = embr[:, None].expand(b, n, embr.shape[-1]).reshape(b * n, -1)
+            if y is not None:
+                embr = embr + _mlp2(params["label_emb"], y[b:].reshape(b * n, -1))
+        hr = input_ref.reshape((b * n,) + tuple(input_ref.shape[2:])).to(compute_dtype)
     context = context[:b].to(compute_dtype)
+    nerf_draws = None if draws is None else draws.child("nerf")
 
     inb_spec, mid_spec, outb_spec, _ = build_unet_spec(cfg)
     h = x.to(compute_dtype)
     fg_mask_list, alphas_list, rgb_list, rendered = [], [], [], {}
 
-    def apply_layer(lp, spec, h):
+    def both(fn, h, hr):
+        """fn on the target stream, and without gradient on the reference
+        stream."""
+        h = fn(h, emb)
+        if hr is not None:
+            with torch.no_grad():
+                hr = fn(hr, embr)
+        return h, hr
+
+    def apply_layer(lp, spec, h, hr):
         kind = spec[0]
         if kind == "conv_in":
-            return conv2d(lp, h)
+            return both(lambda t, _: conv2d(lp, t), h, hr)
         if kind == "res":
-            return _resblock_apply(lp, h, emb)
+            return both(lambda t, e: _resblock_apply(lp, t, e), h, hr)
         if kind == "down":
-            return conv2d(lp, h, stride=2, padding=((1, 1), (1, 1)))
+            return both(lambda t, _: conv2d(lp, t, stride=2, padding=((1, 1), (1, 1))), h, hr)
         if kind == "up":
-            return conv2d(lp, upsample_nearest_2x(h))
+            return both(lambda t, _: conv2d(lp, upsample_nearest_2x(t)), h, hr)
         if kind == "attn":
             _, ch, depth, attn_id = spec
-            h, aux = spatial_transformer_apply(
+            h, hr, aux = spatial_transformer_apply(
                 lp, h, context, cfg.transformer_config(ch, depth, attn_id),
                 cams=cams,
                 nerf_cache=None if nerf_caches is None else nerf_caches.get(attn_id),
                 ref_features=None if ref_features is None else ref_features.get(attn_id),
                 ctx_kv=None if ctx_kv is None else ctx_kv.get(attn_id),
+                xr=hr, context_ref=contextr, mask_ref=mask_ref,
+                draws=None if nerf_draws is None else nerf_draws.child(str(attn_id)),
             )
             fg_mask_list.extend(aux["fg_masks"])
             alphas_list.extend(aux["alphas"])
             rgb_list.extend(aux["rgbs"])
             if aux["rendered"]:
                 rendered[attn_id] = aux["rendered"]
-            return h
+            return h, hr
         raise ValueError(kind)
 
-    hs = []
+    hs, hrs = [], []
     for lp_block, spec_block in zip(params["input_blocks"], inb_spec):
         for lp, spec in zip(lp_block, spec_block):
-            h = apply_layer(lp, spec, h)
+            h, hr = apply_layer(lp, spec, h, hr)
         hs.append(h)
+        hrs.append(hr)
     for lp, spec in zip(params["middle_block"], mid_spec):
-        h = apply_layer(lp, spec, h)
+        h, hr = apply_layer(lp, spec, h, hr)
     for lp_block, spec_block in zip(params["output_blocks"], outb_spec):
         h = torch.cat([h, hs.pop()], dim=-1)
+        skip_r = hrs.pop()
+        if hr is not None:
+            hr = torch.cat([hr, skip_r], dim=-1)
         for lp, spec in zip(lp_block, spec_block):
-            h = apply_layer(lp, spec, h)
+            h, hr = apply_layer(lp, spec, h, hr)
+    del hr
 
     out = conv2d(params["out_conv"], group_norm_silu(params["out_norm"], h, eps=1e-5))
     aux = dict(fg_mask_list=fg_mask_list, alphas_list=alphas_list,

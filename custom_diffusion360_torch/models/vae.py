@@ -1,7 +1,8 @@
-"""SDXL VAE decoder (port of the decode half of custom_diffusion360_tpu/
-models/vae.py). NHWC; single-head attention at the bottleneck, which goes to
-the attention kernel on CUDA (d = 512 at full width). The encoder comes with
-training and is not ported yet.
+"""SDXL VAE (port of custom_diffusion360_tpu/models/vae.py): the decoder
+for sampling, and the encoder, diagonal-Gaussian sample and
+``encode_first_stage`` for training, where the VAE is frozen and runs
+under ``torch.no_grad``. NHWC; single-head attention at the bottleneck,
+which goes to the attention kernel on CUDA (d = 512 at full width).
 """
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import dataclasses
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.attention import dot_product_attention
@@ -29,8 +31,10 @@ class VAEConfig:
     ch: int = 128
     ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
     num_res_blocks: int = 2
+    in_channels: int = 3
     out_ch: int = 3
     z_channels: int = 4
+    double_z: bool = True
     scale_factor: float = 0.13025
 
 
@@ -80,19 +84,44 @@ def _attn_apply(p, x):
     return x + conv2d(p["proj_out"], out)
 
 
+def _downsample(p, x):
+    """Stride-2 3x3 conv after a (0, 1) zero pad of H and W (the reference
+    pads bottom and right only); the pad is taken in NHWC so the conv reads
+    a channels-last view."""
+    x = F.pad(x, (0, 0, 0, 1, 0, 1))
+    y = F.conv2d(x.permute(0, 3, 1, 2), p["w"].to(x.dtype), p["b"].to(x.dtype), stride=2)
+    return y.permute(0, 2, 3, 1)
+
+
 def init_vae_params(cfg: VAEConfig = VAEConfig(), seed: int = 0, device="cuda",
                     dtype=torch.float32):
-    """Seeded random decoder-side parameters ("decoder", "post_quant_conv")
-    with the JAX tree's structure."""
+    """Seeded random parameters with the JAX tree's structure: "encoder",
+    "decoder", "quant_conv" and "post_quant_conv"."""
     init = Init(seed, resolve_device(device), torch_dtype(dtype))
+    n_lv = len(cfg.ch_mult)
     bi = cfg.ch * cfg.ch_mult[-1]
+    enc = {"conv_in": conv2d_init(init, cfg.in_channels, cfg.ch, 3)}
+    in_mult = (1,) + tuple(cfg.ch_mult)
+    for i in range(n_lv):
+        block_in, block_out = cfg.ch * in_mult[i], cfg.ch * cfg.ch_mult[i]
+        lvl = {"block": [_init_res(init, block_in if j == 0 else block_out, block_out)
+                         for j in range(cfg.num_res_blocks)]}
+        if i != n_lv - 1:
+            lvl["downsample"] = conv2d_init(init, block_out, block_out, 3)
+        enc[f"down_{i}"] = lvl
+    enc["mid"] = {"block_1": _init_res(init, bi, bi), "attn_1": _init_attn(init, bi),
+                  "block_2": _init_res(init, bi, bi)}
+    zc = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+    enc["norm_out"] = group_norm_init(init, bi)
+    enc["conv_out"] = conv2d_init(init, bi, zc, 3)
+
     dec = {
         "conv_in": conv2d_init(init, cfg.z_channels, bi, 3),
         "mid": {"block_1": _init_res(init, bi, bi), "attn_1": _init_attn(init, bi),
                 "block_2": _init_res(init, bi, bi)},
     }
     block_in = bi
-    for i in reversed(range(len(cfg.ch_mult))):
+    for i in reversed(range(n_lv)):
         block_out = cfg.ch * cfg.ch_mult[i]
         blocks = [_init_res(init, block_in if j == 0 else block_out, block_out)
                   for j in range(cfg.num_res_blocks + 1)]
@@ -103,8 +132,46 @@ def init_vae_params(cfg: VAEConfig = VAEConfig(), seed: int = 0, device="cuda",
         dec[f"up_{i}"] = lvl
     dec["norm_out"] = group_norm_init(init, block_in)
     dec["conv_out"] = conv2d_init(init, block_in, cfg.out_ch, 3)
-    return {"decoder": dec,
+    return {"encoder": enc, "decoder": dec,
+            "quant_conv": conv2d_init(init, zc, zc, 1),
             "post_quant_conv": conv2d_init(init, cfg.z_channels, cfg.z_channels, 1)}
+
+
+def vae_encode(params, x, cfg: VAEConfig = VAEConfig()):
+    """x: (B, H, W, 3) in [-1, 1] -> moments (B, H/8, W/8, 2 * z) in x.dtype."""
+    enc = params["encoder"]
+    h = conv2d(enc["conv_in"], x)
+    for i in range(len(cfg.ch_mult)):
+        lvl = enc[f"down_{i}"]
+        for bp in lvl["block"]:
+            h = _res_apply(bp, h)
+        if "downsample" in lvl:
+            h = _downsample(lvl["downsample"], h)
+    h = _res_apply(enc["mid"]["block_1"], h)
+    h = _attn_apply(enc["mid"]["attn_1"], h)
+    h = _res_apply(enc["mid"]["block_2"], h)
+    h = conv2d(enc["conv_out"], _gn_silu(enc["norm_out"], h))
+    return conv2d(params["quant_conv"], h)
+
+
+def diagonal_gaussian_sample(moments, eps=None):
+    """moments = [mean | logvar] on the channel axis; logvar clamped to
+    [-30, 20]; returns mean + exp(logvar / 2) * eps (the mean when eps is
+    None). eps: standard-normal draws of the mean's shape."""
+    mean, logvar = moments.chunk(2, dim=-1)
+    if eps is None:
+        return mean
+    std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+    return mean + std * eps.to(mean.device, mean.dtype)
+
+
+@torch.no_grad()
+def encode_first_stage(params, x, cfg: VAEConfig = VAEConfig(), eps=None):
+    """Images (B, H, W, 3) in [-1, 1] -> scaled latents (B, H/8, W/8, z):
+    encode, sample with the draws ``eps`` (the mean when None), times
+    scale_factor. No gradient: the VAE is frozen."""
+    z = diagonal_gaussian_sample(vae_encode(params, x, cfg), eps)
+    return z * cfg.scale_factor
 
 
 def vae_decode(params, z, cfg: VAEConfig = VAEConfig()):

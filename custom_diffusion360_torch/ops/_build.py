@@ -22,10 +22,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
-KERNELS = ("attention", "bilinear_sample")
+KERNELS = ("attention", "bilinear_sample", "bilinear_sample_bwd", "layer_norm", "group_norm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the entry points (argtypes, restype int = cudaError_t)
 _SIGNATURES = {
     "attention": (
@@ -36,6 +37,18 @@ _SIGNATURES = {
     "bilinear_sample": (
         "cd360_bilinear_sample",
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "bilinear_sample_bwd": (
+        "cd360_bilinear_sample_bwd",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "layer_norm": (
+        "cd360_layer_norm",
+        [_P, _P, _P, _P, ctypes.c_longlong, _I, _F, _I, _P],
+    ),
+    "group_norm": (
+        "cd360_group_norm",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     ),
 }
 

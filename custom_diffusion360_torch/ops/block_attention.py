@@ -11,6 +11,11 @@ and it streams KV through shared memory, so the KV length is not limited.
 ``attention_fwd`` is the one wrapper that launches it: for CUDA tensors it
 launches the kernel (or raises on what the kernel does not take); for CPU
 tensors it runs the plain version ``attention_plain``.
+
+``block_attention`` and ``block_attention_qkv_fused`` are autograd
+Functions around it: the forward is ``attention_fwd``, the backward the
+JAX package's recompute in plain f32 (``attention_bwd_plain``, JAX
+block_attention._bwd); the TPU package has no backward kernel either.
 """
 from __future__ import annotations
 
@@ -95,15 +100,63 @@ attention_fwd.launches = 0
 attention_fwd.launches_by_shape = Counter()
 
 
+def attention_bwd_plain(q, k, v, g, scale: float, kv_len: Optional[int] = None):
+    """(dq, dk, dv) of softmax(q k^T * scale) v for the output cotangent g,
+    recomputed in f32 and cast to the operand dtypes (JAX:
+    block_attention._bwd). q, g: (b, h, n, d); k, v: (b, h, m, d)."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    s = torch.einsum("bhnd,bhmd->bhnm", qf, kf) * scale
+    if kv_len is not None and kv_len < k.shape[2]:
+        mask = torch.arange(k.shape[2], device=s.device) < kv_len
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    del s
+    dv = torch.einsum("bhnm,bhnd->bhmd", p, gf)
+    dp = torch.einsum("bhnd,bhmd->bhnm", gf, vf)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    del p, dp
+    dq = torch.einsum("bhnm,bhmd->bhnd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bhnd->bhmd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (scale, kv_len)
+        return attention_fwd(q, k, v, scale, kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*attention_bwd_plain(*ctx.saved_tensors, g, *ctx.cfg), None, None)
+
+
+class _AttentionQKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, scale):
+        ctx.save_for_backward(qkv)
+        ctx.scale = scale
+        return attention_fwd(qkv[:, 0], qkv[:, 1], qkv[:, 2], scale, None)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        grads = attention_bwd_plain(qkv[:, 0], qkv[:, 1], qkv[:, 2], g, ctx.scale)
+        return torch.stack(grads, dim=1), None
+
+
 def block_attention(q, k, v, scale: float, kv_len: Optional[int] = None):
     """softmax(q k^T * scale) v. q: (b, h, n, d); k, v: (b, h, m, d).
-    Keys at or beyond ``kv_len`` are masked. (JAX: block_attention; its
-    block_q is a TPU tiling knob with no counterpart here.)"""
-    return attention_fwd(q, k, v, scale, kv_len)
+    Keys at or beyond ``kv_len`` are masked. Differentiable. (JAX:
+    block_attention; its block_q is a TPU tiling knob with no counterpart
+    here.)"""
+    return _Attention.apply(q, k, v, scale, kv_len)
 
 
 def block_attention_qkv_fused(qkv, scale: float):
     """Self-attention from one packed (b, 3, h, n, d) operand, typically a
     strided view of the (b, n, 3*h*d) fused to_qkv output -> (b, h, n, d).
-    The kernel reads q, k and v in place. (JAX: block_attention_qkv_fused.)"""
-    return attention_fwd(qkv[:, 0], qkv[:, 1], qkv[:, 2], scale, None)
+    The kernel reads q, k and v in place; the backward returns the stacked
+    (dq, dk, dv). (JAX: block_attention_qkv_fused.)"""
+    return _AttentionQKV.apply(qkv, scale)

@@ -1,0 +1,196 @@
+"""LayerNorm and GroupNorm(+SiLU) kernel wrappers (port of
+custom_diffusion360_tpu/ops/norms.py).
+
+The TPU package kept its fused Pallas norms off the model path because a
+custom call is a synchronization point in XLA's fused schedule; on a CUDA
+stream a kernel is just the next launch, so here they carry every norm of
+the models on the card: ``csrc/layer_norm.cu`` and ``csrc/group_norm.cu``.
+
+``layer_norm_fused`` and ``group_norm_fused`` are autograd Functions: the
+forward launches the kernel for CUDA tensors (or raises on what it does
+not take) and runs the plain version (``_ln_plain`` / ``_gn_plain``, f32
+statistics) for CPU tensors; the backward is the plain closed form, in
+f32, as the JAX package's ``_ln_bwd`` / ``_gn_bwd``. Launches are counted
+on ``layer_norm_fused`` / ``group_norm_fused`` (``launches`` and
+``launches_by_shape``).
+"""
+from __future__ import annotations
+
+from collections import Counter
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+CHANNEL_MULTIPLE = 8  # 16-byte vectors of bf16
+
+
+def _ln_plain(x, scale, bias, eps):
+    """LayerNorm over the last axis in f32, cast back (JAX: _ln_xla)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def _gn_plain(x, scale, bias, num_groups, eps, act=None):
+    """GroupNorm of (N, ..., C) channels-last x per (sample, group) in f32,
+    optional SiLU, cast back (JAX: _gn_xla)."""
+    n, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(n, -1, num_groups, c // num_groups)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = (xf - mean).square().mean(dim=(1, 3), keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape) * scale.float() + bias.float()
+    if act == "silu":
+        y = F.silu(y)
+    return y.to(x.dtype)
+
+
+def _check_input(x, what):
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what} kernel takes bf16 or f32, got {x.dtype}")
+    if x.shape[-1] % CHANNEL_MULTIPLE:
+        raise ValueError(f"{what} kernel needs channels divisible by "
+                         f"{CHANNEL_MULTIPLE}, got {x.shape[-1]}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what} kernel needs a contiguous, 16-byte aligned input")
+
+
+def _f32(t, device):
+    """An f32 copy of a (bf16) scale or bias. The caller holds it until the
+    launch is queued: a temporary freed as soon as its data_ptr() is taken
+    hands its block to the next allocation (the other parameter's copy)."""
+    return t.to(device=device, dtype=torch.float32).contiguous()
+
+
+def _ln_forward(x, scale, bias, eps):
+    if x.device.type == "cpu":
+        return _ln_plain(x, scale, bias, eps)
+    _check_input(x, "layer_norm")
+    c = x.shape[-1]
+    rows = x.numel() // c
+    y = torch.empty_like(x)
+    scale, bias = _f32(scale, x.device), _f32(bias, x.device)
+    fn = _build.load("layer_norm")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, c,
+                float(eps), _DTYPES[x.dtype], stream)
+    _build.check(rc, "layer_norm_fused")
+    layer_norm_fused.launches += 1
+    layer_norm_fused.launches_by_shape[(rows, c, _DTYPE_NAMES[x.dtype])] += 1
+    return y
+
+
+def gn_chunks(n: int, hw: int) -> int:
+    """Row chunks per sample of the GroupNorm kernel's split reduction:
+    about two blocks per SM of an H100 over the whole batch."""
+    return max(1, min(hw, -(-264 // n)))
+
+
+def _gn_forward(x, scale, bias, num_groups, eps, act):
+    if x.device.type == "cpu":
+        return _gn_plain(x, scale, bias, num_groups, eps, act)
+    _check_input(x, "group_norm")
+    n, c = x.shape[0], x.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"group_norm kernel needs {num_groups} groups to divide C = {c}")
+    if act not in (None, "silu"):
+        raise ValueError(f"group_norm kernel fuses act None or 'silu', got {act!r}")
+    hw = x.numel() // (n * c)
+    chunks = gn_chunks(n, hw)
+    y = torch.empty_like(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    partial = torch.empty((n, chunks, num_groups), **f32)
+    mean = torch.empty((n, num_groups), **f32)
+    rstd = torch.empty((n, num_groups), **f32)
+    scale, bias = _f32(scale, x.device), _f32(bias, x.device)
+    fn = _build.load("group_norm")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                y.data_ptr(), partial.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                n, hw, c, num_groups, chunks, float(eps), int(act == "silu"),
+                _DTYPES[x.dtype], stream)
+    _build.check(rc, "group_norm_fused")
+    group_norm_fused.launches += 1
+    group_norm_fused.launches_by_shape[
+        (n, hw, c, num_groups, act or "none", _DTYPE_NAMES[x.dtype])] += 1
+    return y
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _ln_forward(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        """Closed-form f32 backward (JAX: _ln_bwd)."""
+        x, scale = ctx.saved_tensors
+        xf, gf = x.float(), g.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        inv = torch.rsqrt(var + ctx.eps)
+        xhat = (xf - mean) * inv
+        lead = tuple(range(x.dim() - 1))
+        dx = dscale = dbias = None
+        if ctx.needs_input_grad[0]:
+            dy = gf * scale.float()
+            dx = inv * (dy - dy.mean(-1, keepdim=True)
+                        - xhat * (dy * xhat).mean(-1, keepdim=True))
+            dx = dx.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dscale = (gf * xhat).sum(lead).to(scale.dtype)
+        if ctx.needs_input_grad[2]:
+            dbias = gf.sum(lead).to(scale.dtype)
+        return dx, dscale, dbias, None
+
+
+class _GroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, act):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.cfg = (num_groups, eps, act)
+        return _gn_forward(x, scale, bias, num_groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        """The VJP of ``_gn_plain``, recomputed in f32 (JAX: _gn_bwd)."""
+        saved = ctx.saved_tensors
+        wanted = [i for i in range(3) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(saved)]
+            y = _gn_plain(*leaves, *ctx.cfg)
+            grads = torch.autograd.grad(y, [leaves[i] for i in wanted], g)
+        out = [None] * 6
+        for i, gr in zip(wanted, grads):
+            out[i] = gr
+        return tuple(out)
+
+
+def layer_norm_fused(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm over the last axis with f32 statistics. x: (..., C) bf16 or
+    f32 (C % 8 == 0 on the card); scale, bias: (C,). Output in x.dtype."""
+    return _LayerNorm.apply(x, scale, bias, eps)
+
+
+def group_norm_fused(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,
+                     act: Optional[str] = None):
+    """Per-sample GroupNorm of channels-last x (N, ..., C) over (spatial,
+    group channels) with f32 statistics, fused with SiLU when act="silu".
+    Output in x.dtype."""
+    return _GroupNorm.apply(x, scale, bias, num_groups, eps, act)
+
+
+layer_norm_fused.launches = 0
+layer_norm_fused.launches_by_shape = Counter()
+group_norm_fused.launches = 0
+group_norm_fused.launches_by_shape = Counter()

@@ -1,0 +1,148 @@
+"""Optimizer and training step (port of custom_diffusion360_tpu/train/
+trainer.py).
+
+Every parameter leaf gets a label (``label_params``):
+
+  'train'   pose_emb_layers / pose_featurenerf leaves and the V* modifier
+            rows (AdamW at lr);
+  'lowlr'   with trainkeys='poseattn' the attn1/attn2 of pose blocks, with
+            'all' every other UNet leaf (AdamW at multiplier * lr);
+  'frozen'  everything else: no gradient, no optimizer state.
+
+``Trainer.init_state`` makes the trainable leaves float32 tensors that
+require grad (the frozen leaves keep their dtype and never require grad)
+and builds one ``torch.optim.AdamW`` with a group per trainable label.
+AdamW's decoupled decay matches optax.adamw; a trainable leaf that got no
+gradient gets a zero one, so it decays as optax would decay it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 1e-4
+    multiplier: float = 0.05  # low-lr group factor
+    trainkeys: str = "pose"  # pose | poseattn | all
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+
+def tree_map(fn, *trees):
+    """fn over the leaves of nested dicts / lists with one structure."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return [tree_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def _label_tree(node, trainkeys: str, label: str):
+    if isinstance(node, dict):
+        has_pose = "pose_emb_layers" in node
+        out = {}
+        for k, v in node.items():
+            if k in ("pose_emb_layers", "pose_featurenerf"):
+                out[k] = tree_map(lambda _: "train", v)
+            elif k == "modifier_rows":
+                out[k] = "train"
+            elif has_pose and k in ("attn1", "attn2") and trainkeys == "poseattn":
+                out[k] = tree_map(lambda _: "lowlr", v)
+            else:
+                out[k] = _label_tree(v, trainkeys, label)
+        return out
+    if isinstance(node, (list, tuple)):
+        return [_label_tree(v, trainkeys, label) for v in node]
+    return label
+
+
+def label_params(params: dict, trainkeys: str = "pose"):
+    """Label tree ('train' / 'lowlr' / 'frozen') of the full {unet, vae,
+    conditioner} params."""
+    if trainkeys not in ("pose", "poseattn", "all"):
+        raise ValueError(f"trainkeys={trainkeys!r}")
+    default = "lowlr" if trainkeys == "all" else "frozen"
+    return {top: _label_tree(sub, trainkeys, default if top == "unet" else "frozen")
+            for top, sub in params.items()}
+
+
+def trainable_mask(params: dict, trainkeys: str = "pose"):
+    return tree_map(lambda lab: lab != "frozen", label_params(params, trainkeys))
+
+
+class TrainState(NamedTuple):
+    params: Any
+    optimizer: torch.optim.Optimizer
+    step: int
+
+
+class Trainer:
+    """One optimizer step around an Engine's training loss."""
+
+    def __init__(self, engine, cfg: TrainConfig = TrainConfig()):
+        self.engine = engine
+        self.cfg = cfg
+        self.labels = None
+
+    def init_state(self, params) -> TrainState:
+        cfg = self.cfg
+        self.labels = label_params(params, cfg.trainkeys)
+
+        def prepare(lab, leaf):
+            if lab == "frozen":
+                return leaf.detach()
+            return leaf.detach().float().clone().requires_grad_(True)
+
+        params = tree_map(prepare, self.labels, params)
+        groups = {"train": [], "lowlr": []}
+        for lab, leaf in zip(tree_leaves(self.labels), tree_leaves(params)):
+            if lab != "frozen":
+                groups[lab].append(leaf)
+        lrs = {"train": cfg.lr, "lowlr": cfg.lr * cfg.multiplier}
+        opt = torch.optim.AdamW(
+            [{"params": ps, "lr": lrs[lab]} for lab, ps in groups.items() if ps],
+            betas=(cfg.b1, cfg.b2), eps=cfg.eps, weight_decay=cfg.weight_decay,
+        )
+        return TrainState(params, opt, 0)
+
+    def trainable(self, state: TrainState):
+        return [leaf for lab, leaf in zip(tree_leaves(self.labels), tree_leaves(state.params))
+                if lab != "frozen"]
+
+    def train_step(self, state: TrainState, batch, draws):
+        """Forward, backward and one AdamW update of the trainable leaves
+        (in place). Returns (the next state, metrics): the loss terms and
+        ``grad_norm``, the global L2 norm of the trainable gradients, as
+        detached tensors."""
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        loss, metrics = self.engine.training_loss(state.params, batch, state.step, draws)
+        loss.backward()
+        leaves = self.trainable(state)
+        for leaf in leaves:
+            if leaf.grad is None:
+                leaf.grad = torch.zeros_like(leaf)
+        grad_norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(leaf.grad.float()) for leaf in leaves]))
+        opt.step()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = grad_norm
+        return TrainState(state.params, opt, state.step + 1), metrics

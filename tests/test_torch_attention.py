@@ -2,6 +2,7 @@
 (as tests/test_block_attention.py runs them) and the XLA reference of the
 long-KV flash row. On the CPU the port's kernel wrapper runs its plain f32
 version; tolerance 2e-5 (f32 on both sides, different summation order)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,3 +108,56 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
         tba._check_operand(
             torch.empty((1, 2, 8, 70), dtype=torch.bfloat16, device="meta")[..., :64], "q"
         )
+
+
+# ---------------------------------------------------------------------------
+# gradients: the port's autograd (plain f32 recompute, as the JAX custom
+# VJP) against the JAX package's custom-VJP gradients; 1e-5 of max|g|
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = 1e-5
+
+
+def _assert_grads(got, want):
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        assert max_err(a, b) <= GRAD_TOL * float(np.abs(b).max())
+
+
+@pytest.mark.parametrize("n,m,d,kv_len", [(256, 256, 64, None), (128, 200, 64, 150)])
+def test_block_attention_gradients_match_jax(n, m, d, kv_len):
+    rng = np.random.default_rng(n + m)
+    q, k, v = _qkv(rng, 1, 2, n, m, d)
+    g = rng.normal(size=(1, 2, n, d)).astype(np.float32)
+    scale = d**-0.5
+    _, vjp = jax.vjp(lambda a, b, c: ba.block_attention(a, b, c, scale, kv_len, 128),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    leaves = [t(a).requires_grad_(True) for a in (q, k, v)]
+    tba.block_attention(*leaves, scale, kv_len).backward(t(g))
+    _assert_grads([leaf.grad for leaf in leaves], want)
+
+
+def test_qkv_fused_gradient_is_stacked_dq_dk_dv_as_jax():
+    rng = np.random.default_rng(7)
+    q, k, v = _qkv(rng, 1, 2, 256, 256, 64)
+    packed = np.stack([q, k, v], axis=1)
+    g = rng.normal(size=(1, 2, 256, 64)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: ba.block_attention_qkv_fused(x, 0.125, 128), jnp.asarray(packed))
+    (want,) = vjp(jnp.asarray(g))
+    leaf = t(packed).requires_grad_(True)
+    tba.block_attention_qkv_fused(leaf, 0.125).backward(t(g))
+    assert leaf.grad.shape == packed.shape
+    _assert_grads([leaf.grad], [want])
+
+
+def test_gradient_reaches_the_inputs_through_the_dispatch():
+    """A loss through dot_product_attention[_qkv] on the kernel route
+    (> KERNEL_MIN_KV keys) gives every input a nonzero gradient."""
+    rng = np.random.default_rng(8)
+    x = t(rng.normal(size=(1, 160, 2, 64)).astype(np.float32)).requires_grad_(True)
+    qkv = t(rng.normal(size=(1, 160, 3 * 128)).astype(np.float32)).requires_grad_(True)
+    (tat.dot_product_attention(x * 1.0, x * 0.5, x * 2.0).square().sum()
+     + tat.dot_product_attention_qkv(qkv, 2).square().sum()).backward()
+    for leaf in (x, qkv):
+        assert leaf.grad is not None and float(leaf.grad.abs().max()) > 0

@@ -8,7 +8,11 @@ the JAX package, so it runs where JAX is not installed:
 Tolerances: attention, bf16 kernel (bf16 P in P.V and bf16 output) vs the
 f32 plain version on the same bf16 inputs, 1e-2 of max|ref| (one bf16
 rounding of the largest output is at most 2**-8 of it); bilinear, one bf16
-rounding of the output, 1e-2 relative to max|ref|.
+rounding of the output, 1e-2 relative to max|ref|. LayerNorm and
+GroupNorm(+SiLU): f32 input 1e-5 of max|ref| (f32 statistics in another
+summation order), bf16 input 1e-2 of max|ref| (one bf16 rounding of the
+output). Bilinear backward: f32 atomics in a run-dependent order, 1e-5 of
+max|ref| in f32, 1e-2 for a bf16 cotangent and result.
 """
 import pytest
 import torch
@@ -20,7 +24,17 @@ from custom_diffusion360_torch.ops.block_attention import (
     block_attention_qkv_fused,
 )
 from custom_diffusion360_torch.ops.grid_sample import grid_sample_2d
-from custom_diffusion360_torch.ops.onehot_sample import bilinear_sample
+from custom_diffusion360_torch.ops.norms import (
+    _gn_plain,
+    _ln_plain,
+    group_norm_fused,
+    layer_norm_fused,
+)
+from custom_diffusion360_torch.ops.onehot_sample import (
+    bilinear_sample,
+    bilinear_sample_bwd,
+    bilinear_sample_bwd_plain,
+)
 
 pytestmark = pytest.mark.cuda
 ATTN_TOL = 1e-2  # of max|ref|
@@ -84,3 +98,91 @@ def test_bilinear_kernel_matches_plain(gen, c, dtype):
     ref = grid_sample_2d(feats.float(), grid)
     tol = 1e-2 * max(1.0, float(ref.abs().max())) if dtype == torch.bfloat16 else 1e-5
     assert float((got.float() - ref).abs().max()) < tol
+
+
+def _norm_tol(dtype):
+    return 1e-5 if dtype == torch.float32 else 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c", [(1000, 640), (77, 1280), (5, 8), (3000, 768), (10, 5120)])
+def test_layer_norm_kernel_matches_plain(gen, rows, c, dtype):
+    x = (_randn(gen, rows, c, dtype=torch.float32) * 3 + 1).to(dtype)
+    s, b = _randn(gen, c, dtype=torch.float32) * 0.1 + 1, _randn(gen, c, dtype=torch.float32)
+    before = layer_norm_fused.launches
+    got = layer_norm_fused(x, s, b)
+    torch.cuda.synchronize()
+    assert layer_norm_fused.launches == before + 1 and got.dtype == dtype
+    ref = _ln_plain(x.float(), s, b, 1e-5)
+    assert float((got.float() - ref).abs().max()) < _norm_tol(dtype) * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("n,hw,c,groups", [
+    (2, 4096, 320, 32), (1, 64 * 64, 1920, 32), (3, 7 * 5, 64, 32), (1, 512 * 512, 128, 32),
+    (4, 100, 48, 8),
+])
+def test_group_norm_kernel_matches_plain(gen, n, hw, c, groups, act, dtype):
+    # a large offset: the two-pass statistics must not lose the variance
+    x = (_randn(gen, n, hw, c, dtype=torch.float32) * 0.5 + 20.0).to(dtype)
+    s, b = _randn(gen, c, dtype=torch.float32) * 0.1 + 1, _randn(gen, c, dtype=torch.float32)
+    before = group_norm_fused.launches
+    got = group_norm_fused(x, s, b, groups, 1e-6, act)
+    torch.cuda.synchronize()
+    assert group_norm_fused.launches == before + 1 and got.dtype == dtype
+    ref = _gn_plain(x.float(), s, b, groups, 1e-6, act)
+    assert float((got.float() - ref).abs().max()) < _norm_tol(dtype) * float(ref.abs().max())
+
+
+def test_norm_kernels_take_bf16_scale_and_bias(gen):
+    """The models on the card pass bf16 scale and bias; the wrappers copy
+    both to f32 and must keep the two copies apart until the launch."""
+    x = _randn(gen, 4, 256, 640)
+    s = (_randn(gen, 640, dtype=torch.float32) * 0.1 + 1).to(torch.bfloat16)
+    b = _randn(gen, 640)
+    for got, ref in ((layer_norm_fused(x, s, b), _ln_plain(x.float(), s, b, 1e-5)),
+                     (group_norm_fused(x, s, b, 32, 1e-6, "silu"),
+                      _gn_plain(x.float(), s, b, 32, 1e-6, "silu"))):
+        torch.cuda.synchronize()
+        assert float((got.float() - ref).abs().max()) < 1e-2 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,side,c,p", [(4, 32, 648, 12288), (4, 16, 1288, 6144), (2, 8, 7, 500)])
+def test_bilinear_backward_kernel_matches_plain(gen, m, side, c, p, dtype):
+    g = _randn(gen, m, p, c, dtype=dtype)
+    grid = torch.rand((m, p, 2), generator=gen, device="cuda") * 2.4 - 1.2
+    grid[:, :4] = torch.tensor([[1.0, 1.0], [-1.0, -1.0], [1.2, 0.0], [1.0, -1.0]],
+                               device="cuda")
+    before = bilinear_sample_bwd.launches
+    got = bilinear_sample_bwd(g, grid, (m, side, side, c), dtype)
+    torch.cuda.synchronize()
+    assert bilinear_sample_bwd.launches == before + 1 and got.dtype == dtype
+    ref = bilinear_sample_bwd_plain(g.float(), grid, (m, side, side, c), torch.float32)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert float((got.float() - ref).abs().max()) < tol * float(ref.abs().max())
+
+
+def test_gradients_reach_inputs_through_the_kernels(gen):
+    """A loss through each kernel wrapper on the card gives every input a
+    nonzero gradient, and the backward kernel of the bilinear sampling runs."""
+    q = _randn(gen, 1, 2, 256, 64).requires_grad_(True)
+    qkv = _randn(gen, 1, 3, 2, 256, 64).requires_grad_(True)
+    feats = _randn(gen, 2, 8, 8, 16, dtype=torch.float32).requires_grad_(True)
+    grid = (torch.rand((2, 100, 2), generator=gen, device="cuda") * 2 - 1).requires_grad_(True)
+    x = _randn(gen, 2, 64, 64).requires_grad_(True)
+    s = torch.ones(64, device="cuda", requires_grad=True)
+    b = torch.zeros(64, device="cuda", requires_grad=True)
+    before = bilinear_sample_bwd.launches
+    loss = (block_attention(q, q * 0.5, q * 2.0, 0.125).float().square().sum()
+            + block_attention_qkv_fused(qkv, 0.125).float().square().sum()
+            + bilinear_sample(feats, grid).square().sum()
+            + layer_norm_fused(x, s, b).float().pow(3).sum()
+            + group_norm_fused(x, s, b, 32, 1e-6, "silu").float().pow(3).sum())
+    loss.backward()
+    torch.cuda.synchronize()
+    assert bilinear_sample_bwd.launches == before + 1
+    for leaf in (q, qkv, feats, x, s, b):
+        assert leaf.grad is not None and float(leaf.grad.float().abs().max()) > 0
+    assert float(grid.grad.abs().max()) == 0.0

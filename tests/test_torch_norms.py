@@ -1,0 +1,137 @@
+"""LayerNorm and GroupNorm(+SiLU) of the port vs the JAX package, on the CPU
+in float32: the wrappers' plain versions (forward and gradients) against
+``ops/norms.layer_norm_fused`` / ``group_norm_fused`` with their Pallas
+kernels in interpret mode (C % 128 == 0) or their XLA path (odd C), the
+models' ``nn.layer_norm`` / ``group_norm[_silu]`` against ``models/nn``, and
+``trunc_exp``'s clipped gradient.
+
+Tolerances: 2e-5 absolute on unit-scale outputs (f32 on both sides,
+different summation order); gradients 1e-5 of max|g|.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import custom_diffusion360_tpu.ops.norms as jnorms
+from custom_diffusion360_tpu.models import nn as jnn
+from custom_diffusion360_torch.models import nn as tnn
+from custom_diffusion360_torch.ops import norms as tnorms
+from tests.test_torch_common import max_err, t
+
+TOL = 2e-5
+GRAD_TOL = 1e-5  # of max|g|
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode(monkeypatch):
+    monkeypatch.setattr(jnorms, "_INTERPRET", True)
+
+
+def _affine(rng, c):
+    return (1.0 + 0.1 * rng.normal(size=(c,))).astype(np.float32), \
+        (0.1 * rng.normal(size=(c,))).astype(np.float32)
+
+
+def _grads_torch(fn, x, scale, bias, g):
+    leaves = [t(a).requires_grad_(True) for a in (x, scale, bias)]
+    y = fn(*leaves)
+    y.backward(t(g))
+    return y.detach(), [leaf.grad for leaf in leaves]
+
+
+def _grads_jax(fn, x, scale, bias, g):
+    y, vjp = jax.vjp(fn, jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+    return y, vjp(jnp.asarray(g))
+
+
+def _assert_grads(got, want):
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        assert max_err(a, b) <= GRAD_TOL * max(float(np.abs(b).max()), 1e-6)
+
+
+@pytest.mark.parametrize("shape", [(4, 9, 256), (3, 40), (2, 5, 72)])  # kernel, odd C
+def test_layer_norm_matches_jax_fused(shape):
+    rng = np.random.default_rng(shape[-1])
+    x = (rng.normal(size=shape) * 2 + 0.5).astype(np.float32)
+    scale, bias = _affine(rng, shape[-1])
+    g = rng.normal(size=shape).astype(np.float32)
+    y_t, grads_t = _grads_torch(lambda a, s, b: tnorms.layer_norm_fused(a, s, b, 1e-5),
+                                x, scale, bias, g)
+    y_j, grads_j = _grads_jax(lambda a, s, b: jnorms.layer_norm_fused(a, s, b, 1e-5),
+                              x, scale, bias, g)
+    assert max_err(y_t, y_j) < TOL
+    assert max_err(tnorms._ln_plain(t(x), t(scale), t(bias), 1e-5),
+                   jnorms._ln_xla(jnp.asarray(x), scale, bias, 1e-5)) < TOL
+    _assert_grads(grads_t, grads_j)
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("shape,groups", [
+    ((2, 8, 8, 256), 32),   # the Pallas kernel (C % 128 == 0, rows % 8 == 0)
+    ((3, 5, 7, 96), 32),    # odd spatial extent: the XLA path
+    ((2, 6, 40), 8),        # odd C, another group count
+])
+def test_group_norm_matches_jax_fused(shape, groups, act):
+    rng = np.random.default_rng(shape[-1] + groups)
+    x = (rng.normal(size=shape) * 3 - 1.0).astype(np.float32)
+    scale, bias = _affine(rng, shape[-1])
+    g = rng.normal(size=shape).astype(np.float32)
+    y_t, grads_t = _grads_torch(
+        lambda a, s, b: tnorms.group_norm_fused(a, s, b, groups, 1e-6, act), x, scale, bias, g)
+    y_j, grads_j = _grads_jax(
+        lambda a, s, b: jnorms.group_norm_fused(a, s, b, groups, 1e-6, act), x, scale, bias, g)
+    assert y_t.shape == shape
+    assert max_err(y_t, y_j) < TOL
+    _assert_grads(grads_t, grads_j)
+
+
+def test_norm_wrappers_on_cpu_are_plain_and_uncounted():
+    rng = np.random.default_rng(0)
+    x = t(rng.normal(size=(2, 16, 64)).astype(np.float32))
+    s, b = (t(a) for a in _affine(rng, 64))
+    before = (tnorms.layer_norm_fused.launches, tnorms.group_norm_fused.launches)
+    assert max_err(tnorms.layer_norm_fused(x, s, b), tnorms._ln_plain(x, s, b, 1e-5)) == 0.0
+    assert max_err(tnorms.group_norm_fused(x, s, b, 32, 1e-6, "silu"),
+                   tnorms._gn_plain(x, s, b, 32, 1e-6, "silu")) == 0.0
+    assert (tnorms.layer_norm_fused.launches, tnorms.group_norm_fused.launches) == before
+    assert not tnorms.layer_norm_fused.launches_by_shape
+    assert not tnorms.group_norm_fused.launches_by_shape
+
+
+def test_norm_kernel_checks_reject_what_they_cannot_take():
+    """The CUDA-side checks run before any launch: validate them on meta
+    tensors (no device needed)."""
+    with pytest.raises(ValueError, match="divisible by 8"):
+        tnorms._check_input(torch.empty((4, 12), device="meta"), "layer_norm")
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tnorms._check_input(torch.empty((4, 16), dtype=torch.float16, device="meta"),
+                            "layer_norm")
+    with pytest.raises(ValueError, match="contiguous"):
+        tnorms._check_input(torch.empty((16, 4), device="meta").t(), "group_norm")
+
+
+@pytest.mark.parametrize("fn", ["layer_norm", "group_norm", "group_norm_silu"])
+def test_model_norms_on_cpu_match_jax_nn(fn):
+    rng = np.random.default_rng(len(fn))
+    x = (rng.normal(size=(2, 6, 6, 64)) * 2 + 1).astype(np.float32)
+    scale, bias = _affine(rng, 64)
+    p_t = {"scale": t(scale), "bias": t(bias)}
+    p_j = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
+    got = getattr(tnn, fn)(p_t, t(x))
+    want = getattr(jnn, fn)(p_j, jnp.asarray(x))
+    assert max_err(got, want) < TOL
+
+
+def test_trunc_exp_gradient_is_clipped_as_jax():
+    x = np.array([-40.0, -15.5, -3.0, 0.0, 2.5, 15.0, 16.0, 30.0], np.float32)
+    xt = t(x).requires_grad_(True)
+    y = tnn.trunc_exp(xt)
+    y.sum().backward()
+    want_y = jnn.trunc_exp(jnp.asarray(x))
+    want_g = jax.grad(lambda a: jnn.trunc_exp(a).sum())(jnp.asarray(x))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y), rtol=1e-6)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_g), rtol=1e-6)
+    assert float(xt.grad[-1]) == pytest.approx(float(np.exp(np.float32(15.0))), rel=1e-6)
