@@ -25,15 +25,27 @@ Phases:
      views, trainkeys "pose", AdamW; one warm-up step, then TRAIN_STEPS
      timed steps with the counters zeroed just before and read just after,
      then one traced step;
-  5. small configurations run twice, on the card through the kernels (bf16)
+  5. the sampling CLI as users run it (custom_diffusion360_torch.cli.sample
+     main(), in-process): full-width SDXL with random weights, a delta .npz
+     of reference buffers at the real shapes and a 20/7-view ring cameras
+     .npz written by the port's own savers, 1024^2, batch 1, one image,
+     the x3 image+text guider (scale 7.5, scale_im 3.5) with both dedupes,
+     50 steps, 8 reference views, CD360_VAE_CONV=pallas (the VAE's 3x3 convs
+     through the conv3x3 kernel) and CD360_ATTN_BNHD=1 (long-KV attention
+     through the (b, n, h, d) route). A 2-step warm-up, the timed run with
+     the counters zeroed just before and read just after, then a 4-step run
+     with two cached steps traced;
+  6. small configurations run twice, on the card through the kernels (bf16)
      and on the CPU through the plain versions (f32): a 3-step sample +
-     decode, whose latent and image must agree, and one training step,
-     whose loss and trainable gradients must agree.
+     decode, whose latent and image must agree, a 3-step x3 CLI sample
+     (--smoke, both switches on), whose images must agree, and one training
+     step, whose loss and trainable gradients must agree.
 
 Every kernel must launch on a main path (the bilinear backward on the
-training path), and every shape a main path launched must have passed
-phase 2. Prints the card's name and power limit first, a JSON line per
-main path, the phase-2 rows of shapes no main path launched, a
+training path, conv3x3 and the bnhd route on the CLI path), and every shape
+a main path launched must have passed phase 2. Prints the card's name and
+power limit first, a JSON line per main path, the phase-2 rows of shapes no
+main path launched, a
 ``{"kernels": [...]}`` line (one row per launched shape, with its launches
 in the timed runs), the card line again and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero without the last line.
@@ -372,6 +384,81 @@ def check_bilinear_bwd(torch, results, shapes):
         torch.cuda.empty_cache()
 
 
+CONV_TOL = 1e-2  # of max|ref|: bf16 operands, f32 sums in another order, one bf16 rounding
+
+
+def check_conv3x3(torch, results, shapes):
+    """conv3x3 kernel (with its fused bias) vs ``conv3x3_plain`` + bias in
+    f32 at (B, H, W, C, N); yardstick cuDNN's F.conv2d on the same bf16
+    channels-last operands. Weights N(0, 1/(9C)): outputs O(1)."""
+    import torch.nn.functional as F
+
+    from custom_diffusion360_torch.ops.conv3x3 import conv3x3_fwd, conv3x3_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for b, h, w, c, n in shapes:
+        x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+        wt = (torch.randn((n, c, 3, 3), generator=gen, device="cuda") * (9 * c) ** -0.5).to(
+            torch.bfloat16)
+        bias = (torch.randn((n,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        got = conv3x3_fwd(x, wt, bias)
+        torch.cuda.synchronize()
+        ref = conv3x3_plain(x.float(), wt.float()) + bias.float()
+        err, tol = float((got.float() - ref).abs().max()), CONV_TOL * float(ref.abs().max())
+        del got, ref
+        ms = time_ms(lambda: conv3x3_fwd(x, wt, bias))
+        plain_ms = time_ms(lambda: conv3x3_plain(x, wt) + bias, max_iters=5)
+        xn = x.permute(0, 3, 1, 2)  # NCHW view of NHWC storage: channels-last
+        wn = wt.contiguous(memory_format=torch.channels_last)
+        lib_ms = time_ms(lambda: F.conv2d(xn, wn, bias, padding=1))
+        nbytes = 2 * (x.numel() + wt.numel() + n + b * h * w * n)
+        bms, by = bound(nbytes, 2.0 * b * h * w * n * 9 * c)
+        _row(results, f"conv3x3 [B{b} {h}x{w} C{c} N{n} bias bf16]",
+             "custom_diffusion360_torch/csrc/conv3x3.cu",
+             "custom_diffusion360_tpu/ops/conv3x3.py:119", err, tol, ms, plain_ms, bms, by,
+             lib_ms, ("conv3x3", (b, h, w, c, n)), "cuDNN F.conv2d")
+        del x, wt, bias
+        torch.cuda.empty_cache()
+
+
+def check_bnhd(torch, results, shapes):
+    """The attention kernel on (b, n, h, d) operands (``attention_bnhd_fwd``)
+    vs ``attention_plain`` on the transposed views, at (b, n, h, m, d,
+    kv_len); yardstick SDPA on the same views."""
+    import torch.nn.functional as F
+
+    from custom_diffusion360_torch.ops.block_attention import attention_bnhd_fwd, attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for b, n, h, m, d, kv in shapes:
+        kv_len = None if kv == m else kv
+        scale = d**-0.5
+        q = torch.randn((b, n, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn((b, m, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+        v = torch.randn((b, m, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        got = attention_bnhd_fwd(q, k, v, scale, kv_len)
+        torch.cuda.synchronize()
+        ref = attention_plain(qt.float(), kt.float(), vt.float(), scale, kv_len).transpose(1, 2)
+        err, tol = float((got.float() - ref).abs().max()), ATTN_TOL * float(ref.abs().max())
+        del got, ref
+        ms = time_ms(lambda: attention_bnhd_fwd(q, k, v, scale, kv_len),
+                     budget_ms=budget_ms(n * m * b * h))
+        plain_ms = time_ms(lambda: attention_plain(qt, kt, vt, scale, kv_len), max_iters=5)
+        mask = None if kv_len is None else (torch.arange(m, device="cuda") < kv_len).expand(n, m)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                scale=scale))
+        nbytes = 2 * (b * h * n * d * 2 + b * h * kv * d * 2)
+        bms, by = bound(nbytes, 4.0 * b * h * n * kv * d)
+        _row(results, f"attention_bnhd_fwd [b{b} n{n} h{h} m{m} d{d}"
+             + (f" kv_len{kv_len}" if kv_len else "") + "]",
+             "custom_diffusion360_torch/csrc/attention.cu",
+             "custom_diffusion360_tpu/ops/block_attention.py:218", err, tol, ms, plain_ms, bms,
+             by, lib_ms, ("bnhd", (b, n, h, m, d, kv)), "SDPA")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
 def _row(results, name, source, replaces, err, tol, ms, plain_ms, bms, by, lib_ms, key,
          lib_name):
     ok = math.isfinite(err) and err <= tol
@@ -401,6 +488,8 @@ def check_launched(torch, results, launched):
     check_bilinear_bwd(torch, results, todo.pop("bilinear_bwd", []))
     check_layer_norm(torch, results, todo.pop("layer_norm", []))
     check_group_norm(torch, results, todo.pop("group_norm", []))
+    check_conv3x3(torch, results, todo.pop("conv3x3", []))
+    check_bnhd(torch, results, todo.pop("bnhd", []))
     if todo:
         raise RuntimeError(f"no phase-2 check for kernels {sorted(todo)}")
     log(f"[kernels] launched shapes checked in {time.time() - t0:.1f} s")
@@ -587,12 +676,13 @@ def run_main_path(torch, counters):
                  "cached step")
     del params, eng
     torch.cuda.empty_cache()
-    return launches, by_shape
+    return launches, by_shape, t_decode * 1e3
 
 
 TRACE_STEPS = (2, 4)  # sampler steps [2, 4) of a 4-step run, both cached
 KERNEL_GROUPS = (  # device kernels by name, first match wins
     ("attention kernel", ("attn_fwd_kernel",)),
+    ("conv3x3 kernel", ("conv3x3_kernel",)),
     ("bilinear bwd kernel", ("bilinear_bwd_kernel",)),
     ("bilinear kernel", ("bilinear_kernel",)),
     ("layer_norm kernel", ("layer_norm_kernel",)),
@@ -774,7 +864,167 @@ def run_train_path(torch, counters):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernels vs plain versions through a small sample and train step
+# phase 5: the sampling CLI at full width
+# ---------------------------------------------------------------------------
+
+CLI_SWITCHES = {"CD360_VAE_CONV": "pallas", "CD360_ATTN_BNHD": "1"}
+N_TRAIN_CAMS, N_VAL_CAMS = 20, 7
+
+
+class cli_setup:
+    """Context for in-process runs of cli.sample.main: the env switches set
+    (and restored after), ``Engine.init_params`` wrapped so the random
+    weights' zero-initialized leaves are perturbed (``on_cpu``: made on the
+    CPU in f32 first, so the card and the CPU get the same weights), and a
+    temporary directory holding a delta .npz (reference buffers for every
+    pose block at ``latent``, one row per training camera plus the zero
+    row, stored in f16, and V* rows) and a ring cameras .npz, both written
+    by the port's own savers."""
+
+    def __init__(self, torch, unet_cfg, latent, clip_widths, on_cpu):
+        self.torch, self.unet_cfg, self.latent = torch, unet_cfg, latent
+        self.clip_widths, self.on_cpu = clip_widths, on_cpu
+
+    def __enter__(self):
+        import tempfile
+
+        from custom_diffusion360_torch.cli.sample import ring_cameras
+        from custom_diffusion360_torch.engine import Engine
+        from custom_diffusion360_torch.io.cameras_io import save_cameras_npz
+        from custom_diffusion360_torch.io.delta import iter_pose_blocks, save_delta_npz
+        from custom_diffusion360_torch.models.unet import attn_block_meta
+
+        torch = self.torch
+        self.saved_env = {k: os.environ.get(k) for k in CLI_SWITCHES}
+        os.environ.update(CLI_SWITCHES)
+        self.orig_init = Engine.init_params
+        orig, on_cpu = self.orig_init, self.on_cpu
+
+        def init_params(eng, seed=0, dtype=None):
+            dtype = eng.cfg.dtype if dtype is None else dtype
+            if on_cpu:
+                params = orig(Engine(eng.cfg, device="cpu"), seed, torch.float32)
+                params = perturb_zero_leaves(torch, params, seed + 100)
+                return _map(params, lambda x: x.to(eng.device, dtype))
+            return perturb_zero_leaves(torch, orig(eng, seed, dtype), seed + 100)
+
+        Engine.init_params = init_params
+        self.tmp = tempfile.TemporaryDirectory()
+        d = self.tmp.name
+        # drawn on the device when there is one (0.8 GiB of buffers at full width)
+        dev = "cpu" if self.on_cpu else "cuda"
+        gen = torch.Generator(device=dev).manual_seed(0)
+        meta = attn_block_meta(self.unet_cfg)
+        delta = {}
+        for prefix, _, attn_id, _ in iter_pose_blocks(self.unet_cfg):
+            ds, ch, _ = meta[attn_id]
+            shape = (N_TRAIN_CAMS + 1, (self.latent // ds) ** 2, ch)
+            delta[prefix + ".references"] = (torch.randn(shape, generator=gen, device=dev)
+                                             * 0.05).half().cpu().numpy()
+        delta["embed"] = [(torch.randn((1, w), generator=gen, device=dev) * 0.02).cpu().numpy()
+                          for w in self.clip_widths]
+        self.delta, self.cameras = os.path.join(d, "delta.npz"), os.path.join(d, "cameras.npz")
+        save_delta_npz(self.delta, delta)
+        save_cameras_npz(self.cameras, train=ring_cameras(N_TRAIN_CAMS),
+                         val=ring_cameras(N_VAL_CAMS))
+        self.out = os.path.join(d, "out")
+        self.delta_bytes = os.path.getsize(self.delta)
+        return self
+
+    def __exit__(self, *exc):
+        from custom_diffusion360_torch.engine import Engine
+
+        Engine.init_params = self.orig_init
+        for k, v in self.saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        self.tmp.cleanup()
+        return False
+
+    def argv(self, *extra):
+        return ["--delta_ckpt", self.delta, "--cameras", self.cameras, "--output_dir", self.out,
+                *extra]
+
+
+def run_cli_path(torch, counters, main_decode_ms):
+    """python -m custom_diffusion360_torch.cli.sample at full width, in
+    process: 1024^2, batch 1, one image, x3 guider, 50 steps, 8 reference
+    views, both kernel switches on. A 2-step warm-up, the timed run
+    (counted), then a 4-step run with cached steps 2-3 traced."""
+    from custom_diffusion360_torch.cli import sample as cli
+    from custom_diffusion360_torch.models.unet import UNetConfig
+
+    res = 8 * LATENT
+    base = ["--resolution", str(res), "--num_images", "1", "--batch", "1", "--seed", "0",
+            "--device", "cuda", "--dtype", "bfloat16"]
+    t0 = time.time()
+    with cli_setup(torch, UNetConfig(), LATENT, (768, 1280), on_cpu=False) as setup:
+        log(f"[cli] delta .npz {setup.delta_bytes / 2**20:.1f} MiB and cameras .npz written in "
+            f"{time.time() - t0:.1f} s; switches {json.dumps(CLI_SWITCHES)}")
+        t0 = time.time()
+        cli.main(setup.argv(*base, "--num_steps", "2"))  # warm-up
+        torch.cuda.synchronize()
+        log(f"[cli] warm-up (load, init, 2 steps, decode) {time.time() - t0:.1f} s")
+        marks = []
+
+        def cb(i):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        for c in counters.values():
+            c.launches = 0
+            c.launches_by_shape.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (rec,) = cli.main(setup.argv(*base, "--num_steps", str(STEPS)), callback=cb)
+        t_all = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        by_shape = {(k, shape): n for k, c in counters.items()
+                    for shape, n in c.launches_by_shape.items()}
+        peak = torch.cuda.max_memory_allocated()
+        img = rec["images"][0]
+        cached = sorted((b - a) * 1e3 for a, b in zip(marks, marks[1:]))
+        render_ms = (rec["sample_s"] - (marks[-1] - marks[0])) * 1e3
+        med = statistics.median(cached)
+        ok = (img.shape == (res, res, 3) and float(img.std()) > 1.0 and len(marks) == STEPS
+              and os.path.exists(rec["paths"][0]))
+        log(f"[cli] x3 guider, {len(marks)} steps: render step {render_ms:.1f} ms; cached x3 step "
+            f"median {med:.1f} ms (min {cached[0]:.1f}, max {cached[-1]:.1f}); decode with the "
+            f"conv3x3 kernel {rec['decode_s'] * 1e3:.1f} ms (cuDNN decode of [main] "
+            f"{main_decode_ms:.1f} ms); image latency (sample + decode) {rec['seconds']:.2f} s; "
+            f"main() {t_all:.2f} s with loading and init; peak memory allocated "
+            f"{peak / 2**30:.2f} GiB")
+        log(f"[cli] launches {json.dumps(launches)}")
+        for (k, shape), n in sorted(by_shape.items(), key=str):
+            log(f"[cli] launches {k} {shape}: {n}")
+        log(f"[cli] image {img.shape} uint8 mean {float(img.mean()):.2f} std "
+            f"{float(img.std()):.2f} {'OK' if ok else 'FAIL'}")
+        print(json.dumps({"cli_path": {
+            "render_step_ms": render_ms, "cached_step_ms_median": med,
+            "cached_step_ms_min": cached[0], "cached_step_ms_max": cached[-1],
+            "decode_ms": rec["decode_s"] * 1e3, "main_decode_cudnn_ms": main_decode_ms,
+            "image_latency_s": rec["seconds"], "peak_gib": peak / 2**30,
+            "launches": launches}}), flush=True)
+        if not ok:
+            raise RuntimeError("CLI path: no finite, non-constant 1024^2 image")
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+
+        def trace_cb(i):
+            torch.cuda.synchronize()
+            if i + 1 in TRACE_STEPS:
+                (prof.start if i + 1 == TRACE_STEPS[0] else prof.stop)()
+
+        cli.main(setup.argv(*base, "--num_steps", str(TRACE_STEPS[1])), callback=trace_cb)
+        report_trace(torch, prof, med, TRACE_STEPS[1] - TRACE_STEPS[0], "cached x3 step")
+    torch.cuda.empty_cache()
+    return launches, by_shape
+
+
+# ---------------------------------------------------------------------------
+# phase 6: kernels vs plain versions through small samples and a train step
 # ---------------------------------------------------------------------------
 
 SMALL_UNET = dict(
@@ -833,6 +1083,40 @@ def run_small_check(torch):
             f"{'OK' if err <= tol else 'FAIL'}")
     if not all(errs):
         raise RuntimeError("small-config sample on the card disagrees with the CPU")
+
+
+def run_small_cli_check(torch):
+    """cli.sample.main --smoke (x3 guider, both switches on, the VAE's
+    bottleneck attention through the bnhd route), 3 steps at 256^2 (latent
+    32), 4 reference views: bf16 through the kernels on the card vs f32
+    through the plain versions on the CPU, from the same weights (made on
+    the CPU) and the same per-job noise; the uint8 images must agree within
+    SMALL_TOL of the 255 range."""
+    import numpy as np
+
+    from custom_diffusion360_torch.cli import sample as cli
+
+    widths = (cli.SMOKE_CFG.conditioner.clip_l.width, cli.SMOKE_CFG.conditioner.open_clip.width)
+    imgs, bnhd = {}, {}
+    from custom_diffusion360_torch.ops.block_attention import attention_bnhd_fwd
+
+    with cli_setup(torch, cli.SMOKE_CFG.unet, 32, widths, on_cpu=True) as setup:
+        for device, dtype in (("cpu", "float32"), ("cuda", "bfloat16")):
+            before = attention_bnhd_fwd.launches
+            (rec,) = cli.main(setup.argv("--smoke", "--device", device, "--dtype", dtype,
+                                         "--num_steps", "3", "--num_images", "1",
+                                         "--resolution", "256", "--num_ref", "4"))
+            imgs[device] = rec["images"].astype(np.float32)
+            bnhd[device] = attention_bnhd_fwd.launches - before
+    err = float(np.abs(imgs["cuda"] - imgs["cpu"]).max())
+    tol = SMALL_TOL * 255.0
+    ok = err <= tol and bnhd["cuda"] > 0 and float(imgs["cpu"].std()) > 1.0
+    log(f"[small-cli] x3 --smoke image {imgs['cpu'].shape}: max-abs err cuda-bf16 vs cpu-f32 "
+        f"{err:.1f} of 255 (tol {tol:.2f}); mean abs err "
+        f"{float(np.abs(imgs['cuda'] - imgs['cpu']).mean()):.3f}; bnhd launches on the card "
+        f"{bnhd['cuda']} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("small x3 CLI sample on the card disagrees with the CPU")
 
 
 SMALL_TRAIN_UNET = dict(SMALL_UNET, context_dim=64, adm_in_channels=32 + 6 * 8,
@@ -917,7 +1201,8 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     from custom_diffusion360_torch.ops import _build
-    from custom_diffusion360_torch.ops.block_attention import attention_fwd
+    from custom_diffusion360_torch.ops.block_attention import attention_bnhd_fwd, attention_fwd
+    from custom_diffusion360_torch.ops.conv3x3 import conv3x3_fwd
     from custom_diffusion360_torch.ops.norms import group_norm_fused, layer_norm_fused
     from custom_diffusion360_torch.ops.onehot_sample import bilinear_sample, bilinear_sample_bwd
 
@@ -951,13 +1236,17 @@ def main():
 
     counters = {"attention": attention_fwd, "bilinear": bilinear_sample,
                 "bilinear_bwd": bilinear_sample_bwd, "layer_norm": layer_norm_fused,
-                "group_norm": group_norm_fused}
-    paths = {"sample": run_main_path(torch, counters)}
+                "group_norm": group_norm_fused, "conv3x3": conv3x3_fwd,
+                "bnhd": attention_bnhd_fwd}
+    launches, by_shape, main_decode_ms = run_main_path(torch, counters)
+    paths = {"sample": (launches, by_shape)}
     launches, by_shape, grad_shapes = run_train_path(torch, counters)
     paths["train"] = (launches, by_shape)
+    paths["cli"] = run_cli_path(torch, counters, main_decode_ms)
     check_launched(torch, results, {key for _, shapes in paths.values() for key in shapes})
     time_attention_backward(torch, grad_shapes)
     run_small_check(torch)
+    run_small_cli_check(torch)
     run_small_train_check(torch)
 
     failed = [r["name"] for r in results if not r["ok"]]
@@ -965,8 +1254,11 @@ def main():
         print(f"chip_smoke: kernels disagree with their plain versions: {failed}",
               file=sys.stderr)
         return 1
-    # the sampling path is inference: it runs no backward kernel
-    expected = {"sample": set(counters) - {"bilinear_bwd"}, "train": set(counters)}
+    # the sampling paths are inference: no backward kernel; conv3x3 and the
+    # bnhd route run only under the CLI phase's switches
+    switched = {"conv3x3", "bnhd"}
+    expected = {"sample": set(counters) - {"bilinear_bwd"} - switched,
+                "train": set(counters) - switched, "cli": set(counters) - {"bilinear_bwd"}}
     for path, (launches, _) in paths.items():
         missing = sorted(k for k in expected[path] if launches[k] == 0)
         if missing:

@@ -12,13 +12,14 @@ random draws come from a ``draws.Draws``.
 feeds the rendered features to the remaining steps as ``nerf_caches`` (exact
 at eval: the rays are deterministic), with the text cross-attention K/V
 hoisted out of the loop. Randomness enters only as the ``noise`` tensor;
-``cond``/``uc`` come in as tensors of the conditioner's output shapes,
-crossattn (B, 77, 2048) and vector (B, 2816). The other samplers and
-guiders are not ported yet.
+``cond``/``uc`` are the conditioner's outputs (crossattn (B, 77, 2048),
+vector (B, 2816); ``get_unconditional_conditioning``). Under the x3 guider
+two dedupes apply (see ``sample``). The other samplers are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional
 
 import torch
@@ -90,7 +91,7 @@ class Engine:
         return (n, h // f, w // f, self.cfg.vae.z_channels)
 
     def network_fn(self, params, cams: Optional[Cameras], mask_ref=None, *, nerf_caches=None,
-                   ref_features=None, ctx_kv=None, draws=None):
+                   ref_features=None, ctx_kv=None, draws=None, prefix_dedupe=None):
         """network(x, t, cond, input_ref=, sigmas_ref=) -> (eps, aux), the
         callable the Denoiser wraps; ``draws`` makes the renders stochastic
         (training)."""
@@ -101,6 +102,7 @@ class Engine:
                 cams=cams, nerf_caches=nerf_caches, ref_features=ref_features,
                 ctx_kv=ctx_kv, compute_dtype=self.cfg.dtype, input_ref=input_ref,
                 sigmas_ref=sigmas_ref, mask_ref=mask_ref, draws=draws,
+                prefix_dedupe=prefix_dedupe,
             )
 
         return network
@@ -146,16 +148,19 @@ class Engine:
         return combine_losses(terms, batch["drop_im"].to(self.device), global_step,
                               cfg=self.cfg.loss, rgb_predict=self.cfg.unet.rgb_predict)
 
-    def build_ref_features(self, references, choices, batch_size, num_copies):
+    def build_ref_features(self, references, choices, batch_size, num_copies,
+                           shared_cams=False):
         """Per-block reference tokens from delta-checkpoint buffers
         references {attn_id: {d: (Nref+1, hw, C)}} (last row = zero-image
         feature) and the chosen rows ``choices`` (n,), as CompactRefTokens
-        whose num_copies CFG copies are laid out 2 -> [zero | chosen]."""
+        whose num_copies CFG copies are laid out 2 -> [zero | chosen],
+        3 -> [zero | chosen | chosen]; ``shared_cams`` licenses the x3 render
+        dedupe."""
         idx = torch.as_tensor(choices, dtype=torch.long)
         return {
             attn_id: {
                 d: CompactRefTokens(buf[-1], buf[:-1][idx.to(buf.device)], batch_size,
-                                    num_copies)
+                                    num_copies, shared_cams=shared_cams)
                 for d, buf in per_d.items()
             }
             for attn_id, per_d in references.items()
@@ -164,7 +169,8 @@ class Engine:
     @torch.inference_mode()
     def sample(self, params, cond, uc, guider, *, noise, cams: Optional[Cameras] = None,
                references=None, choices=None, num_steps: Optional[int] = None,
-               callback: Optional[Callable[[int], None]] = None):
+               callback: Optional[Callable[[int], None]] = None,
+               shared_target_cams: bool = False):
         """Pose-conditioned sampling -> latents (B, h, w, 4) f32.
 
         noise: (B, h, w, 4) standard normal draws (the initial latent before
@@ -172,6 +178,14 @@ class Engine:
         (num_copies * B, 1 + Nref), camera 0 the target. references/choices:
         delta-buffer reference features and the chosen rows.
         ``callback(i)`` runs after sampler step i (step 0 renders).
+
+        shared_target_cams: declares that every guider copy carries the same
+        target camera rows (``cams`` tiles one B-row block over the copies,
+        as cli/sample.py builds it). Under the x3 guider that licenses the
+        render dedupe (models/transformer.py, ``CD360_CFG3_DEDUPE``). The
+        cached steps also run the UNet's pre-pose-block prefix on the
+        guider's unique copies (``prefix_copy_groups``; off with
+        ``CD360_PREFIX_DEDUPE=0``).
         """
         cfg = self.cfg
         n_steps = num_steps or cfg.num_sample_steps
@@ -185,7 +199,8 @@ class Engine:
         params = dict(params, unet=fuse_attention_params(params["unet"]))
         ref_features = None
         if references is not None:
-            ref_features = self.build_ref_features(references, choices, b, guider.num_copies)
+            ref_features = self.build_ref_features(references, choices, b, guider.num_copies,
+                                                   shared_cams=shared_target_cams)
 
         def make_denoise(nerf_caches, collect_rendered):
             ctx_kv = None
@@ -195,10 +210,13 @@ class Engine:
                 _, _, cb = guider.prepare(x, sig0, cond, uc)
                 ctx = cb["crossattn"][: b * guider.num_copies]
                 ctx_kv = precompute_context_kv(params["unet"], cfg.unet, ctx.to(cfg.dtype))
+            prefix_dedupe = None
+            if nerf_caches is not None and os.environ.get("CD360_PREFIX_DEDUPE", "1") != "0":
+                prefix_dedupe = getattr(guider, "prefix_copy_groups", None)
             network = self.network_fn(
                 params, cams, nerf_caches=nerf_caches,
                 ref_features=None if nerf_caches is not None else ref_features,
-                ctx_kv=ctx_kv,
+                ctx_kv=ctx_kv, prefix_dedupe=prefix_dedupe,
             )
 
             def denoise(xi, sigma_vec):

@@ -1,5 +1,6 @@
 """Perspective-camera math in pytorch3d's row-vector conventions (port of
-the part of custom_diffusion360_tpu/geometry/cameras.py that sampling uses).
+the part of custom_diffusion360_tpu/geometry/cameras.py that sampling uses,
+the pose sweeps of the sampling CLI included).
 
 * world-to-view: ``X_view = X_world @ R + T``; camera center ``C = -T @ R^T``
 * NDC: +X left, +Y up; ``x_ndc = fx * x / z + px``, ``y_ndc = fy * y / z + py``
@@ -30,6 +31,13 @@ class Cameras(NamedTuple):
     def batch_shape(self):
         return self.R.shape[:-2]
 
+    def __getitem__(self, idx):
+        """Index the batch dims of every field (an int, a slice or an index
+        array), as the JAX ``Cameras``; the fields stay ``.R``, ``.T``..."""
+        if isinstance(idx, np.ndarray):
+            idx = torch.as_tensor(idx, device=self.R.device)
+        return Cameras(*(f[idx] for f in self))
+
     def reshape(self, *shape):
         return Cameras(
             self.R.reshape(*shape, 3, 3),
@@ -56,6 +64,11 @@ class Cameras(NamedTuple):
         image_size = f32(512.0 if image_size is None else image_size)
         image_size = image_size.expand(batch + (2,)).contiguous()
         return Cameras(R, T, focal_length, principal_point, image_size)
+
+
+def stack_cameras(cams, dim=0):
+    """Stack a list of Cameras along a new batch dim."""
+    return Cameras(*(torch.stack(x, dim=dim) for x in zip(*cams)))
 
 
 def camera_center(cam: Cameras):
@@ -96,3 +109,31 @@ def unproject_ndc_points(cam: Cameras, xy_depth):
     )
     pv = torch.cat([xy_view, depth], dim=-1)
     return view_to_world(cam, pv)
+
+
+def interpolate_camera_translation(cam: Cameras, offsets) -> Cameras:
+    """Move one camera (batch shape ()) by view-space ``offsets`` (K, 3),
+    keeping its orientation -> Cameras of batch (K,)."""
+    offsets = torch.as_tensor(np.asarray(offsets, np.float32), device=cam.R.device)
+    k = offsets.shape[0]
+    new_center = view_to_world(cam, offsets[None])[0]  # (K, 3) world points
+    new_t = -torch.einsum("kj,jl->kl", new_center, cam.R)  # T = -C @ R
+
+    def tile(x):
+        return x[None].expand((k,) + tuple(x.shape)).contiguous()
+
+    return Cameras(tile(cam.R), new_t, tile(cam.focal_length), tile(cam.principal_point),
+                   tile(cam.image_size))
+
+
+def interpolate_camera_focal(cam: Cameras, scales) -> Cameras:
+    """One camera (batch shape ()) with its focal length times each of
+    ``scales`` (K,) -> Cameras of batch (K,)."""
+    scales = torch.as_tensor(np.asarray(scales, np.float32), device=cam.R.device)[:, None]
+    k = scales.shape[0]
+
+    def tile(x):
+        return x[None].expand((k,) + tuple(x.shape)).contiguous()
+
+    return Cameras(tile(cam.R), tile(cam.T), cam.focal_length[None] * scales,
+                   tile(cam.principal_point), tile(cam.image_size))

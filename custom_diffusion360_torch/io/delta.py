@@ -1,9 +1,21 @@
-"""Where the FeatureNeRF pose blocks sit in the UNet (port of
-``iter_pose_blocks`` from custom_diffusion360_tpu/io/delta.py; loading and
-saving delta checkpoints comes with the checkpoint loaders)."""
+"""Delta checkpoints, the distribution format of a customized model (port
+of custom_diffusion360_tpu/io/delta.py).
+
+In memory a delta is the reference's flat ``delta_state_dict``: torch keys
+for the pose weights (``...pose_emb_layers.weight``, ``...pose_featurenerf.
+model.*``), per-block ``...references`` buffers, and one ``"embed"`` entry
+holding ``[clip_l_rows (M, 768), open_clip_rows (M, 1280)]``. Values are
+numpy arrays (``.npz``) or CPU tensors (the reference's torch ``.ckpt``,
+whose bf16 leaves numpy cannot hold). ``extract_delta`` is training-side and
+not ported.
+"""
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+import pickle
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
 
 from ..models.unet import UNetConfig, build_unet_spec
 
@@ -38,3 +50,105 @@ def iter_pose_blocks(cfg: UNetConfig) -> Iterator[Tuple[str, Tuple, int, int]]:
         for j, spec in enumerate(block):
             yield from emit("output_blocks", i, j, spec)
 
+
+
+def _get_block(unet_params, path, d):
+    if path[0] == "middle_block":
+        st = unet_params["middle_block"][path[1]]
+    else:
+        st = unet_params[path[0]][path[1]][path[2]]
+    return st["blocks"][d]
+
+
+_POSE_LEAVES = [
+    # (torch suffix, tree keys, transpose)
+    (".pose_emb_layers.weight", ("pose_emb_layers", "w"), True),
+    (".pose_featurenerf.model.plane_coefs.0.weight", ("pose_featurenerf", "plane_coefs", "l1", "w"), True),
+    (".pose_featurenerf.model.plane_coefs.0.bias", ("pose_featurenerf", "plane_coefs", "l1", "b"), False),
+    (".pose_featurenerf.model.plane_coefs.2.weight", ("pose_featurenerf", "plane_coefs", "l2", "w"), True),
+    (".pose_featurenerf.model.plane_coefs.2.bias", ("pose_featurenerf", "plane_coefs", "l2", "b"), False),
+    (".pose_featurenerf.model.decoder.weight", ("pose_featurenerf", "decoder", "w"), True),
+    (".pose_featurenerf.model.nviews.weight", ("pose_featurenerf", "nviews", "w"), True),
+    (".pose_featurenerf.model.nviews.bias", ("pose_featurenerf", "nviews", "b"), False),
+]
+
+
+def _tree_set(d, keys, value):
+    for k in keys[:-1]:
+        d = d.setdefault(k, {})
+    d[keys[-1]] = value
+
+
+def _tensor(v, device):
+    t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v, copy=True))
+    return t.to(device)
+
+
+def apply_delta_state_dict(params: dict, sd_delta: Dict, cfg: UNetConfig = UNetConfig()):
+    """Merge a reference-format delta_state_dict into {unet, conditioner}
+    params (the pose-block dicts are updated in place) -> (params,
+    references). Torch (out, in) linears become (in, out); leaves keep the
+    delta's dtype and go to the device of the UNet's ``time_embed``.
+
+    references: {attn_id: {d: (Nref + 1, hw, C)}} token-grid feature
+    buffers, the last row the zero-image feature."""
+    device = params["unet"]["time_embed"]["l1"]["w"].device
+    references: dict = {}
+    for prefix, path, attn_id, d in iter_pose_blocks(cfg):
+        blk = _get_block(params["unet"], path, d)
+        for suffix, keys, transpose in _POSE_LEAVES:
+            tk = prefix + suffix
+            if tk in sd_delta:
+                v = _tensor(sd_delta[tk], device)
+                _tree_set(blk, keys, v.t().contiguous() if transpose else v)
+        rk = prefix + ".references"
+        if rk in sd_delta:
+            references.setdefault(attn_id, {})[d] = _tensor(sd_delta[rk], device)
+    if "embed" in sd_delta and "conditioner" in params:
+        rows_l, rows_g = sd_delta["embed"]
+        cond = params["conditioner"]
+        cond["clip_l"]["modifier_rows"] = _tensor(rows_l, cond["clip_l"]["token_embedding"].device)
+        cond["open_clip"]["modifier_rows"] = _tensor(
+            rows_g, cond["open_clip"]["token_embedding"].device)
+    return params, references
+
+
+def save_delta_npz(path: str, sd_delta: Dict) -> None:
+    flat = {}
+    for k, v in sd_delta.items():
+        if k == "embed":
+            flat["embed.0"], flat["embed.1"] = np.asarray(v[0]), np.asarray(v[1])
+        else:
+            flat[k] = np.asarray(v)
+    np.savez(path, **flat)
+
+
+def load_delta_npz(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path) as f:
+        data = dict(f)
+    if "embed.0" in data:
+        data["embed"] = [data.pop("embed.0"), data.pop("embed.1")]
+    return data
+
+
+def load_delta_torch(path: str) -> Dict[str, torch.Tensor]:
+    """The reference's ``.ckpt`` with a ``"delta_state_dict"`` entry ->
+    {key: CPU tensor}, ``"embed"`` a list of two.
+
+    Reads with ``torch.load(weights_only=True)``, which unpickles tensors
+    and containers only. A checkpoint that pickled other objects beside the
+    delta (the reference's training loop may) is refused by that reader and
+    then read with ``weights_only=False``, which can run code stored in the
+    file: load only checkpoints from a source you trust."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    sd = obj["delta_state_dict"]
+    out = {}
+    for k, v in sd.items():
+        if k == "embed":
+            out["embed"] = [x.detach().cpu() for x in v]
+        else:
+            out[k] = v.detach().cpu()
+    return out

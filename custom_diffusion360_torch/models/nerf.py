@@ -212,13 +212,18 @@ class CompactRefTokens:
     ``zero`` (hw, C) and the chosen views ``chosen`` (n, hw, C); the
     (batch x CFG copies) expansion is deferred to ``project_ref_maps``, so
     only the projected maps are ever expanded. Expanded row layout:
-    [zero rows x batch | chosen rows x batch x (copies - 1)]."""
+    [zero rows x batch | chosen rows x batch x (copies - 1)].
 
-    def __init__(self, zero, chosen, batch: int, copies: int):
+    ``shared_cams``: the caller's declaration that every CFG copy carries
+    the same target camera rows (``Engine.sample(shared_target_cams=)``),
+    which licenses the x3 render dedupe (transformer._reference_attn)."""
+
+    def __init__(self, zero, chosen, batch: int, copies: int, shared_cams: bool = False):
         self.zero = zero
         self.chosen = chosen
         self.batch = int(batch)
         self.copies = int(copies)
+        self.shared_cams = bool(shared_cams)
 
     @property
     def shape(self):

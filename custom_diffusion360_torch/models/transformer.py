@@ -9,12 +9,12 @@ reference tokens (delta-buffer ``ref_features``, sampling), the render cache
 stream ``xr``: the reference views run the same frozen weights in lockstep,
 without gradient (``torch.no_grad``, where the JAX package stop-gradients
 them), and each pose block renders from the reference activations that
-enter it. Training uses the canonical un-fused q/k/v projections; the x3
-guider's render dedupe is not ported yet.
+enter it. Training uses the canonical un-fused q/k/v projections.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -22,7 +22,7 @@ import torch
 from ..geometry.cameras import Cameras
 from ..ops.attention import dot_product_attention, dot_product_attention_qkv
 from ..ops.volume_render import volume_render
-from .nerf import NerfConfig, init_nerf_params, nerfsd_apply
+from .nerf import CompactRefTokens, NerfConfig, init_nerf_params, nerfsd_apply
 from .nn import (
     Init,
     gelu,
@@ -235,31 +235,61 @@ def _reference_attn(p, cams, context_ref, context, prev_weights,
                     cfg: TransformerConfig, d: int, mask_ref=None, draws=None):
     """NeRF render + text cross-attention on the per-point features + volume
     render. Returns (rendered (B, hw, C) f32, fg_mask, prev_weights, alphas,
-    rgb)."""
+    rgb).
+
+    The x3 render dedupe (``CD360_CFG3_DEDUPE``, on unless "0"): under the
+    x3 guider the reference rows are [zero | chosen | chosen], so with the
+    target cameras declared shared across the copies (CompactRefTokens
+    ``shared_cams``) copies 1 and 2 are identical through the ray-march and
+    the encode. The encode then runs on the two unique copies; their
+    per-point features are attended and rendered under the uc context (rows
+    0 and 1), the chosen rows again under the c context (row 2), and the
+    rendered outputs are concatenated. Only at inference, with compact
+    tokens, three copies and no ``mask_ref``.
+    """
+    dd_b = 0
+    if (isinstance(context_ref, CompactRefTokens) and context_ref.copies == 3
+            and context_ref.shared_cams and mask_ref is None and draws is None
+            and os.environ.get("CD360_CFG3_DEDUPE", "1") != "0"):
+        dd_b = context_ref.batch
+        context_ref = CompactRefTokens(context_ref.zero, context_ref.chosen, dd_b, 2)
+        cams = cams[: 2 * dd_b]
+        if prev_weights is not None:
+            prev_weights = prev_weights[: 2 * dd_b]
     nerf_out = nerfsd_apply(
         p["pose_featurenerf"], cams, context_ref, cfg.nerf,
         prev_weights=prev_weights if cfg.use_prev_weights_imp_sample else None,
         imp_sample_next_step=cfg.block_imp_sample_next(d), mask_ref=mask_ref, draws=draws,
     )
     cdt = cfg.nerf.cdtype
-    feats = nerf_out["features"]  # (B, hw, S, C) f32
-    b, hw, s, c = feats.shape
-    feats = feats.reshape(b, hw * s, c)
-    feats = feats + cross_attention_apply(
-        p["attn2"], layer_norm(p["norm2"], feats.to(cdt)), context.to(cdt),
-        n_heads=cfg.n_heads,
-    ).float()
-    feats = feats.reshape(b, hw, s, c)
-    sigma = trunc_exp(nerf_out["sigma"])
-    sigma_uniform = (trunc_exp(nerf_out["sigma_uniform"])
-                     if nerf_out["sigma_uniform"] is not None else None)
-    rgb = torch.sigmoid(nerf_out["rgb"]) if nerf_out["rgb"] is not None else None
-    rendered = volume_render(feats, sigma, nerf_out["dists"], rgb=rgb,
-                             densities_uniform=sigma_uniform,
-                             dists_uniform=nerf_out["dists_uniform"])
-    new_prev = rendered["weights_uniform"] if cfg.use_prev_weights_imp_sample else None
-    return (rendered["feats"], rendered["fg_mask"], new_prev, rendered["alphas"],
-            rendered["rgb"])
+
+    def finish(nout, context):
+        feats = nout["features"]  # (B, hw, S, C) f32
+        b, hw, s, c = feats.shape
+        feats = feats.reshape(b, hw * s, c)
+        feats = feats + cross_attention_apply(
+            p["attn2"], layer_norm(p["norm2"], feats.to(cdt)), context.to(cdt),
+            n_heads=cfg.n_heads,
+        ).float()
+        feats = feats.reshape(b, hw, s, c)
+        sigma = trunc_exp(nout["sigma"])
+        sigma_uniform = (trunc_exp(nout["sigma_uniform"])
+                         if nout["sigma_uniform"] is not None else None)
+        rgb = torch.sigmoid(nout["rgb"]) if nout["rgb"] is not None else None
+        rendered = volume_render(feats, sigma, nout["dists"], rgb=rgb,
+                                 densities_uniform=sigma_uniform,
+                                 dists_uniform=nout["dists_uniform"])
+        new_prev = rendered["weights_uniform"] if cfg.use_prev_weights_imp_sample else None
+        return (rendered["feats"], rendered["fg_mask"], new_prev, rendered["alphas"],
+                rendered["rgb"])
+
+    if not dd_b:
+        return finish(nerf_out, context)
+    chosen = {k: v[dd_b: 2 * dd_b] if isinstance(v, torch.Tensor) else v
+              for k, v in nerf_out.items()}
+    out_a = finish(nerf_out, context[: 2 * dd_b])
+    out_b = finish(chosen, context[2 * dd_b:])
+    return tuple(None if ta is None else torch.cat([ta, tb]) for ta, tb in zip(out_a, out_b))
 
 
 def transformer_block_apply(p, x, context, cfg: TransformerConfig, d: int, *,

@@ -7,8 +7,9 @@ pose blocks render from precomputed reference tokens (``ref_features``),
 read the render cache (``nerf_caches``), or, in training, render from the
 live reference stream: the reference latents (``input_ref``) run the same
 frozen weights in lockstep under ``torch.no_grad`` with their own timestep
-embedding (the JAX package's stop-gradient ``_Stream.both``). The x3
-guider's prefix dedupe is not ported yet.
+embedding (the JAX package's stop-gradient ``_Stream.both``). Under the x3
+guider the cached steps run the layers before the first attention on the
+unique CFG copies only (``prefix_dedupe``).
 """
 from __future__ import annotations
 
@@ -252,7 +253,7 @@ def precompute_context_kv(params, cfg: UNetConfig, context):
 def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
                nerf_caches=None, ref_features=None, ctx_kv=None,
                compute_dtype=torch.float32, input_ref=None, sigmas_ref=None,
-               mask_ref=None, draws=None):
+               mask_ref=None, draws=None, prefix_dedupe=None):
     """Denoising forward. x: (B, H, W, Cin) NHWC (already c_in-scaled);
     timesteps: (B,) c_noise; context: (B', 77, context_dim) and y
     (B', adm_in) with the B target rows first, then the B * Nref reference
@@ -262,6 +263,12 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
     reference latents, run without gradient at timesteps ``sigmas_ref``
     (B,) (zeros when None); mask_ref (B, Nref, Hm, Wm); draws: the
     renders' draws, per pose block under ``nerf/<attn_id>/<depth>/``.
+    prefix_dedupe: a per-copy group tuple such as (0, 0, 1) declaring that
+    the CFG copies of one group carry identical x and emb rows (the guider's
+    ``prefix_copy_groups``): conv_in and the layers before the first
+    ``attn`` then run on one copy per group, and the stream and the skip
+    tensors expand back at that layer (after the input blocks if they have
+    no attention). Ignored when the reference stream runs.
     Returns (eps in x.dtype, aux) with aux = dict(fg_mask_list,
     alphas_list, rgb_list, rendered)."""
     compute_dtype = torch_dtype(compute_dtype)
@@ -287,6 +294,25 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
     inb_spec, mid_spec, outb_spec, _ = build_unet_spec(cfg)
     h = x.to(compute_dtype)
     fg_mask_list, alphas_list, rgb_list, rendered = [], [], [], {}
+
+    expand_rows = None
+    emb_full = emb
+    if prefix_dedupe is not None and input_ref is None:
+        groups = tuple(prefix_dedupe)
+        ncopies = len(groups)
+        if b % ncopies == 0 and len(set(groups)) < ncopies:
+            bb = b // ncopies
+            first = {}
+            for ci, g in enumerate(groups):
+                first.setdefault(g, ci)
+            order = sorted(first)
+            uniq_rows = torch.cat([torch.arange(first[g] * bb, (first[g] + 1) * bb)
+                                   for g in order]).to(h.device)
+            pos = {g: i for i, g in enumerate(order)}
+            expand_rows = torch.cat([torch.arange(pos[g] * bb, (pos[g] + 1) * bb)
+                                     for g in groups]).to(h.device)
+            h = h.index_select(0, uniq_rows)
+            emb = emb.index_select(0, uniq_rows)
 
     def both(fn, h, hr):
         """fn on the target stream, and without gradient on the reference
@@ -329,9 +355,17 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
     hs, hrs = [], []
     for lp_block, spec_block in zip(params["input_blocks"], inb_spec):
         for lp, spec in zip(lp_block, spec_block):
+            if expand_rows is not None and spec[0] == "attn":
+                h = h.index_select(0, expand_rows)
+                hs = [t.index_select(0, expand_rows) for t in hs]
+                emb, expand_rows = emb_full, None
             h, hr = apply_layer(lp, spec, h, hr)
         hs.append(h)
         hrs.append(hr)
+    if expand_rows is not None:  # no attention in the input blocks
+        h = h.index_select(0, expand_rows)
+        hs = [t.index_select(0, expand_rows) for t in hs]
+        emb, expand_rows = emb_full, None
     for lp, spec in zip(params["middle_block"], mid_spec):
         h, hr = apply_layer(lp, spec, h, hr)
     for lp_block, spec_block in zip(params["output_blocks"], outb_spec):

@@ -3,16 +3,24 @@ for sampling, and the encoder, diagonal-Gaussian sample and
 ``encode_first_stage`` for training, where the VAE is frozen and runs
 under ``torch.no_grad``. NHWC; single-head attention at the bottleneck,
 which goes to the attention kernel on CUDA (d = 512 at full width).
+
+The res blocks' 3x3 convs and the decoder's upsample convs go through
+``_conv3``: with ``CD360_VAE_CONV=pallas`` (read at each call) a shape that
+``ops.conv3x3.conv3x3_supported`` passes runs the port's implicit-GEMM conv
+kernel on CUDA (its plain version on the CPU); otherwise, and by default
+("xla", the JAX package's default), ``F.conv2d`` (cuDNN).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..ops import conv3x3
 from ..ops.attention import dot_product_attention
 from .nn import (
     Init,
@@ -38,6 +46,15 @@ class VAEConfig:
     scale_factor: float = 0.13025
 
 
+def _conv3(p, x):
+    """3x3 SAME conv of a res block or upsample: the conv3x3 kernel under
+    ``CD360_VAE_CONV=pallas`` where the shape is supported, else conv2d."""
+    if (os.environ.get("CD360_VAE_CONV", "xla") == "pallas"
+            and conv3x3.conv3x3_supported(x, p["w"])):
+        return conv3x3.conv3x3_gemm(x, p["w"], p.get("b"))
+    return conv2d(p, x)
+
+
 def _gn_silu(p, x):
     return group_norm_silu(p, x, num_groups=min(32, x.shape[-1]))
 
@@ -59,8 +76,8 @@ def _init_res(init: Init, in_ch, out_ch):
 
 
 def _res_apply(p, x):
-    h = conv2d(p["conv1"], _gn_silu(p["norm1"], x))
-    h = conv2d(p["conv2"], _gn_silu(p["norm2"], h))
+    h = _conv3(p["conv1"], _gn_silu(p["norm1"], x))
+    h = _conv3(p["conv2"], _gn_silu(p["norm2"], h))
     if "nin_shortcut" in p:
         x = conv2d(p["nin_shortcut"], x)
     return x + h
@@ -187,7 +204,7 @@ def vae_decode(params, z, cfg: VAEConfig = VAEConfig()):
         for bp in lvl["block"]:
             h = _res_apply(bp, h)
         if "upsample" in lvl:
-            h = conv2d(lvl["upsample"], upsample_nearest_2x(h))
+            h = _conv3(lvl["upsample"], upsample_nearest_2x(h))
     return conv2d(dec["conv_out"], _gn_silu(dec["norm_out"], h))
 
 

@@ -22,7 +22,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
-KERNELS = ("attention", "bilinear_sample", "bilinear_sample_bwd", "layer_norm", "group_norm")
+KERNELS = ("attention", "bilinear_sample", "bilinear_sample_bwd", "layer_norm", "group_norm",
+           "conv3x3")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +50,10 @@ _SIGNATURES = {
     "group_norm": (
         "cd360_group_norm",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    ),
+    "conv3x3": (
+        "cd360_conv3x3",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
 }
 

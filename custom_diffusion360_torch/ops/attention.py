@@ -3,7 +3,9 @@ attention.py).
 
 Inputs are (batch, seq, heads, head_dim), the layout the models keep.
 A CUDA attention with more than 128 keys goes to the attention kernel
-(``block_attention``); short-KV attention (77-token text cross-attention)
+(``block_attention``, or with ``CD360_ATTN_BNHD=1``, read at each call,
+``block_attention_bnhd`` on the (b, n, h, d) operands as they are);
+short-KV attention (77-token text cross-attention)
 takes the plain f32 path, as on the TPU (ops/attention.py:54-63 there), and
 on the CPU the kernel wrapper runs its own plain version. The TPU's split between a whole-KV kernel
 (m <= 4096) and the library flash kernel (longer KV) has no counterpart: the
@@ -11,11 +13,12 @@ Hopper kernel streams KV at any length.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 
-from .block_attention import block_attention, block_attention_qkv_fused
+from .block_attention import block_attention, block_attention_bnhd, block_attention_qkv_fused
 
 KERNEL_MIN_KV = 128  # m above this goes to the kernel wrapper
 
@@ -34,11 +37,14 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None):
     """Softmax attention. q: (b, n, h, d); k, v: (b, m, h, d) -> (b, n, h, d).
 
     ``scale`` defaults to d**-0.5. More than KERNEL_MIN_KV keys: the kernel
-    wrapper; fewer: the plain f32 path.
+    wrapper (the (b, n, h, d) one under ``CD360_ATTN_BNHD=1``); fewer: the
+    plain f32 path.
     """
     d = q.shape[-1]
     if scale is None:
         scale = d**-0.5
+    if k.shape[1] > KERNEL_MIN_KV and os.environ.get("CD360_ATTN_BNHD", "") == "1":
+        return block_attention_bnhd(q, k, v, scale)
     if k.shape[1] > KERNEL_MIN_KV:
         out = block_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale

@@ -16,6 +16,13 @@ tensors it runs the plain version ``attention_plain``.
 Functions around it: the forward is ``attention_fwd``, the backward the
 JAX package's recompute in plain f32 (``attention_bwd_plain``, JAX
 block_attention._bwd); the TPU package has no backward kernel either.
+
+``block_attention_bnhd`` is the same attention on operands in the models'
+(b, n, h, d) layout (JAX ``block_attention_bnhd``, the transpose-free
+kernel that never compiled on the TPU): the kernel reads the (b, h, n, d)
+views of that storage through their strides and writes its output into
+(b, n, h, d) storage, so neither side copies. Its launches are counted
+apart, in ``attention_bnhd_fwd``.
 """
 from __future__ import annotations
 
@@ -56,18 +63,10 @@ def _check_operand(t, name):
         raise ValueError(f"attention kernel needs {name} 16-byte aligned")
 
 
-def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None):
-    """Non-causal attention. q: (b, h, n, d); k, v: (b, h, m, d), any
-    strides with a unit last stride -> (b, h, n, d).
-
-    CUDA tensors launch ``csrc/attention.cu`` (bf16, d in KERNEL_HEAD_DIMS);
-    the result is a (b, h, n, d) view of (b, n, h, d) storage, so callers in
-    the models' (b, n, h, d) layout transpose back for free. CPU tensors run
-    ``attention_plain``. Launches are counted in ``attention_fwd.launches``,
-    and by shape (b, h, n, m, d, kv_len) in ``attention_fwd.launches_by_shape``.
-    """
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale, kv_len)
+def _launch(q, k, v, scale: float, kv_len: Optional[int]):
+    """One launch of ``csrc/attention.cu`` on CUDA (b, h, n, d) q and
+    (b, h, m, d) k, v -> (b, h, n, d) view of (b, n, h, d) storage; raises
+    on what the kernel does not take. Counts nothing."""
     b, h, n, d = q.shape
     m = k.shape[2]
     if k.shape != (b, h, m, d) or v.shape != (b, h, m, d):
@@ -91,13 +90,52 @@ def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, h, n, m, d, kv_len, float(scale), strides, stream)
     _build.check(rc, "attention_fwd")
+    return out
+
+
+def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None):
+    """Non-causal attention. q: (b, h, n, d); k, v: (b, h, m, d), any
+    strides with a unit last stride -> (b, h, n, d).
+
+    CUDA tensors launch ``csrc/attention.cu`` (bf16, d in KERNEL_HEAD_DIMS);
+    the result is a (b, h, n, d) view of (b, n, h, d) storage, so callers in
+    the models' (b, n, h, d) layout transpose back for free. CPU tensors run
+    ``attention_plain``. Launches are counted in ``attention_fwd.launches``,
+    and by shape (b, h, n, m, d, kv_len) in ``attention_fwd.launches_by_shape``.
+    """
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale, kv_len)
+    out = _launch(q, k, v, scale, kv_len)
+    b, h, n, d = q.shape
+    m = k.shape[2]
     attention_fwd.launches += 1
-    attention_fwd.launches_by_shape[(b, h, n, m, d, kv_len)] += 1
+    attention_fwd.launches_by_shape[(b, h, n, m, d, m if kv_len is None else int(kv_len))] += 1
     return out
 
 
 attention_fwd.launches = 0
 attention_fwd.launches_by_shape = Counter()
+
+
+def attention_bnhd_fwd(q, k, v, scale: float, kv_len: Optional[int] = None):
+    """Non-causal attention on the (b, n, h, d) layout: q (b, n, h, d), k, v
+    (b, m, h, d) -> contiguous (b, n, h, d). CUDA: the attention kernel on
+    the (b, h, *, d) views, no transpose copies; launches counted in
+    ``attention_bnhd_fwd.launches`` and by shape (b, n, h, m, d, kv_len).
+    CPU: ``attention_plain`` on the transposed views."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if q.device.type == "cpu":
+        return attention_plain(qt, kt, vt, scale, kv_len).transpose(1, 2)
+    out = _launch(qt, kt, vt, scale, kv_len).transpose(1, 2)
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    attention_bnhd_fwd.launches += 1
+    attention_bnhd_fwd.launches_by_shape[(b, n, h, m, d, m if kv_len is None else int(kv_len))] += 1
+    return out
+
+
+attention_bnhd_fwd.launches = 0
+attention_bnhd_fwd.launches_by_shape = Counter()
 
 
 def attention_bwd_plain(q, k, v, g, scale: float, kv_len: Optional[int] = None):
@@ -146,6 +184,37 @@ class _AttentionQKV(torch.autograd.Function):
         return torch.stack(grads, dim=1), None
 
 
+def attention_bwd_bnhd_plain(q, k, v, g, scale: float, kv_len: Optional[int] = None):
+    """(dq, dk, dv) of the (b, n, h, d)-layout attention for the output
+    cotangent g, recomputed in f32 (JAX: block_attention._bwd_bnhd)."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    s = torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale
+    if kv_len is not None and kv_len < k.shape[1]:
+        mask = torch.arange(k.shape[1], device=s.device) < kv_len
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    del s
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, gf)
+    dp = torch.einsum("bnhd,bmhd->bhnm", gf, vf)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    del p, dp
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _AttentionBNHD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (scale, kv_len)
+        return attention_bnhd_fwd(q, k, v, scale, kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*attention_bwd_bnhd_plain(*ctx.saved_tensors, g, *ctx.cfg), None, None)
+
+
 def block_attention(q, k, v, scale: float, kv_len: Optional[int] = None):
     """softmax(q k^T * scale) v. q: (b, h, n, d); k, v: (b, h, m, d).
     Keys at or beyond ``kv_len`` are masked. Differentiable. (JAX:
@@ -160,3 +229,11 @@ def block_attention_qkv_fused(qkv, scale: float):
     The kernel reads q, k and v in place; the backward returns the stacked
     (dq, dk, dv). (JAX: block_attention_qkv_fused.)"""
     return _AttentionQKV.apply(qkv, scale)
+
+
+def block_attention_bnhd(q, k, v, scale: float, kv_len: Optional[int] = None):
+    """softmax(q k^T * scale) v in the (b, n, h, d) layout. q: (b, n, h, d);
+    k, v: (b, m, h, d). Keys at or beyond ``kv_len`` are masked.
+    Differentiable; the backward is the f32 recompute. (JAX:
+    block_attention_bnhd; block_q is a TPU tiling knob.)"""
+    return _AttentionBNHD.apply(q, k, v, scale, kv_len)

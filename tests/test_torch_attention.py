@@ -161,3 +161,57 @@ def test_gradient_reaches_the_inputs_through_the_dispatch():
      + tat.dot_product_attention_qkv(qkv, 2).square().sum()).backward()
     for leaf in (x, qkv):
         assert leaf.grad is not None and float(leaf.grad.abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the (b, n, h, d) kernel (JAX block_attention_bnhd, interpret mode) and its
+# CD360_ATTN_BNHD=1 route
+# ---------------------------------------------------------------------------
+
+
+def _bnhd(rng, b, n, m, h, d):
+    return tuple(rng.normal(size=s).astype(np.float32)
+                 for s in ((b, n, h, d), (b, m, h, d), (b, m, h, d)))
+
+
+@pytest.mark.parametrize("n,m,kv_len", [(256, 256, None), (200, 128, 77)])
+def test_bnhd_matches_pallas(n, m, kv_len):
+    rng = np.random.default_rng(n + m)
+    q, k, v = _bnhd(rng, 2, n, m, 3, 64)
+    want = ba.block_attention_bnhd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.125,
+                                   kv_len, 128)
+    got = tba.block_attention_bnhd(t(q), t(k), t(v), 0.125, kv_len)
+    assert got.shape == (2, n, 3, 64)
+    assert max_err(got, want) < TOL
+
+
+@pytest.mark.parametrize("kv_len", [None, 77])
+def test_bnhd_gradients_match_jax(kv_len):
+    rng = np.random.default_rng(9 if kv_len is None else kv_len)
+    q, k, v = _bnhd(rng, 1, 128, 128, 2, 64)
+    g = rng.normal(size=q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: ba.block_attention_bnhd(a, b, c, 0.125, kv_len, 128),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    leaves = [t(a).requires_grad_(True) for a in (q, k, v)]
+    tba.block_attention_bnhd(*leaves, 0.125, kv_len).backward(t(g))
+    _assert_grads([leaf.grad for leaf in leaves], want)
+
+
+def test_bnhd_switch_routes_long_kv_at_call_time(monkeypatch):
+    """CD360_ATTN_BNHD=1, read at each call, sends > KERNEL_MIN_KV keys to
+    block_attention_bnhd (same result); short KV stays plain."""
+    rng = np.random.default_rng(10)
+    q, k, v = (t(a) for a in _bnhd(rng, 1, 160, 160, 2, 64))
+    calls = []
+    orig = tba.block_attention_bnhd
+    monkeypatch.setattr(tat, "block_attention_bnhd",
+                        lambda *a: calls.append(a[0].shape) or orig(*a))
+    monkeypatch.setenv("CD360_ATTN_BNHD", "1")
+    got = tat.dot_product_attention(q, k, v)
+    tat.dot_product_attention(q, k[:, :77], v[:, :77])
+    assert calls == [(1, 160, 2, 64)]
+    monkeypatch.delenv("CD360_ATTN_BNHD")
+    want = tat.dot_product_attention(q, k, v)
+    assert len(calls) == 1 and max_err(got, want) < TOL
+    assert tba.attention_bnhd_fwd.launches == 0  # the CPU runs the plain version

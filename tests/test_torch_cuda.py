@@ -12,16 +12,27 @@ rounding of the output, 1e-2 relative to max|ref|. LayerNorm and
 GroupNorm(+SiLU): f32 input 1e-5 of max|ref| (f32 statistics in another
 summation order), bf16 input 1e-2 of max|ref| (one bf16 rounding of the
 output). Bilinear backward: f32 atomics in a run-dependent order, 1e-5 of
-max|ref| in f32, 1e-2 for a bf16 cotangent and result.
+max|ref| in f32, 1e-2 for a bf16 cotangent and result. conv3x3: bf16
+operands, f32 accumulation in another order than the f32 plain version, one
+bf16 rounding of the output (bias added before it): 1e-2 of max|ref|.
 """
 import pytest
 import torch
 
 from custom_diffusion360_torch.ops.block_attention import (
+    attention_bnhd_fwd,
     attention_fwd,
     attention_plain,
     block_attention,
+    block_attention_bnhd,
     block_attention_qkv_fused,
+)
+from custom_diffusion360_torch.ops.conv3x3 import (
+    conv3x3_fwd,
+    conv3x3_gemm,
+    conv3x3_plain,
+    conv3x3_supported,
+    relaid_weight,
 )
 from custom_diffusion360_torch.ops.grid_sample import grid_sample_2d
 from custom_diffusion360_torch.ops.norms import (
@@ -186,3 +197,64 @@ def test_gradients_reach_inputs_through_the_kernels(gen):
     for leaf in (q, qkv, feats, x, s, b):
         assert leaf.grad is not None and float(leaf.grad.float().abs().max()) > 0
     assert float(grid.grad.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n,m,h,kv_len", [(256, 256, 3, None), (200, 333, 2, 150),
+                                          (1024, 1024, 1, None)])
+def test_bnhd_kernel_matches_plain(gen, n, m, h, kv_len):
+    d = 512 if h == 1 else 64
+    q, k, v = _randn(gen, 2, n, h, d), _randn(gen, 2, m, h, d), _randn(gen, 2, m, h, d)
+    before, before_attn = attention_bnhd_fwd.launches, attention_fwd.launches
+    got = block_attention_bnhd(q, k, v, d**-0.5, kv_len)
+    torch.cuda.synchronize()
+    assert attention_bnhd_fwd.launches == before + 1 and attention_fwd.launches == before_attn
+    assert got.shape == (2, n, h, d) and got.is_contiguous()
+    ref = attention_plain(q.float().transpose(1, 2), k.float().transpose(1, 2),
+                          v.float().transpose(1, 2), d**-0.5, kv_len).transpose(1, 2)
+    assert float((got.float() - ref).abs().max()) <= ATTN_TOL * float(ref.abs().max())
+
+
+CONV_TOL = 1e-2  # of max|ref|
+
+
+@pytest.mark.parametrize("b,h,w,c,n,bias", [
+    (1, 32, 32, 128, 128, False), (2, 64, 32, 512, 256, True), (1, 32, 64, 256, 128, True),
+    (1, 64, 64, 128, 384, True),
+])
+def test_conv3x3_kernel_matches_plain(gen, b, h, w, c, n, bias):
+    x = _randn(gen, b, h, w, c)
+    wt = (_randn(gen, n, c, 3, 3, dtype=torch.float32) * (9 * c) ** -0.5).to(torch.bfloat16)
+    bb = _randn(gen, n) if bias else None
+    before = conv3x3_fwd.launches
+    got = conv3x3_gemm(x, wt, bb)
+    torch.cuda.synchronize()
+    assert conv3x3_fwd.launches == before + 1 and got.shape == (b, h, w, n)
+    ref = conv3x3_plain(x.float(), wt.float())
+    if bias:
+        ref = ref + bb.float()
+    err = (got.float() - ref).abs()
+    assert float(err.max()) <= CONV_TOL * float(ref.abs().max())
+    # the border rows and columns (zero padding in the kernel's halo)
+    for edge in (err[:, 0], err[:, -1], err[:, :, 0], err[:, :, -1]):
+        assert float(edge.max()) <= CONV_TOL * float(ref.abs().max())
+
+
+def test_conv3x3_weight_relayout_is_reused_across_calls(gen):
+    x = _randn(gen, 1, 32, 32, 128)
+    wt = _randn(gen, 128, 128, 3, 3) * 0.03
+    first = relaid_weight(wt, torch.bfloat16)
+    a = conv3x3_gemm(x, wt)
+    assert relaid_weight(wt, torch.bfloat16) is first
+    b = conv3x3_gemm(x, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_conv3x3_gate_refuses_f32_on_the_card(gen):
+    x = torch.zeros((1, 32, 32, 128), device="cuda")
+    wt = torch.zeros((128, 128, 3, 3), device="cuda")
+    assert not conv3x3_supported(x, wt)
+    assert conv3x3_supported(x.to(torch.bfloat16), wt)
+    assert conv3x3_supported(x.cpu(), wt.cpu())  # the plain version takes f32
+    with pytest.raises(ValueError, match="conv3x3 kernel does not take"):
+        conv3x3_gemm(x, wt)
