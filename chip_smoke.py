@@ -5,13 +5,22 @@
 
 Phases:
   1. build every kernel under custom_diffusion360_torch/csrc with nvcc
-     (one process per source, all started together);
+     (one process per source, all started together); print ptxas's
+     registers, shared memory and spills, and count the wgmma (HGMMA) and
+     TMA (UTMALDG) instructions in the d = 64 attention kernel's SASS
+     (cuobjdump), which must both be there;
   2. hold each kernel against its plain PyTorch version (max-abs error vs a
      stated tolerance) and time kernel, plain version and the one-call
      PyTorch yardstick (SDPA, F.grid_sample and its backward, F.layer_norm,
      F.group_norm + F.silu), beside the least time the card could take
      (bound): fixed attention and bilinear cases first, then every other
-     (kernel, shape) that the two main paths below launched;
+     (kernel, shape) that the main paths below launched, attention in the
+     layout it was launched in (packed to_qkv view, (b, n, h, d) views or
+     contiguous (b, h, n, d): the sm90 kernel's TMA maps follow the
+     strides). Attention and LayerNorm rows also carry ``device_ms``: the
+     time per launch on the device alone, from a CUDA-graph replay of
+     GRAPH_CALLS calls (no host time between launches), and the same for
+     the library call (``library_device_ms``);
   3. the sampling path: full-width SDXL, 12 FeatureNeRF pose blocks, 1024^2,
      batch 1, CFG x2 (vanilla_cfg_img_ref, scale 7.5), 8 reference views,
      50 Euler-EDM steps with the render cached after step 0, then
@@ -40,6 +49,9 @@ Phases:
      decode, whose latent and image must agree, a 3-step x3 CLI sample
      (--smoke, both switches on), whose images must agree, and one training
      step, whose loss and trainable gradients must agree.
+
+``ms`` is a call's time with the host in it (events around many calls in
+a row), as the main paths pay it; ``device_ms`` is the kernel's own.
 
 Every kernel must launch on a main path (the bilinear backward on the
 training path, conv3x3 and the bnhd route on the CLI path), and every shape
@@ -103,6 +115,35 @@ def time_ms(fn, budget_ms=300.0, max_iters=50):
     return start.elapsed_time(end) / iters
 
 
+GRAPH_CALLS = 20  # calls captured in one CUDA graph for device_ms
+
+
+def graph_ms(fn, calls=GRAPH_CALLS, replays=5):
+    """Mean device time of ``fn()`` in ms, from replays of a CUDA graph that
+    captured ``calls`` calls of it: the host's per-call cost is out of the
+    timing. ``fn`` is called once first (outside the capture) so that any
+    one-time set-up has happened."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
 def bound(nbytes, flops, peak=H100_BF16_FLOPS):
     """(least ms, "bytes" or "operations"): bytes at the HBM rate vs
     operations at ``peak`` FLOP/s."""
@@ -111,23 +152,42 @@ def bound(nbytes, flops, peak=H100_BF16_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+FULL_PTXAS_LOG = ("attention_sm90",)  # every ptxas line of these builds
+SM90_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS", "MUFU.EX2")
+
+
+def sass_counts(name, opcodes):
+    """Instructions of each opcode in the SASS of ``csrc/<name>.cu``'s
+    built library, from ``cuobjdump -sass`` (beside nvcc)."""
+    from custom_diffusion360_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    lines = sass.splitlines()
+    return {op: sum(op in line for line in lines) for op in opcodes}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 ATTN_CASES = [
-    # (label, b, h, n, m, d, kv_len, packed qkv, TPU kernel replaced)
-    ("ds2 self-attn qkv-packed", 2, 10, 4096, 4096, 64, None, True,
+    # (label, b, h, n, m, d, kv_len, layout of the operands, TPU kernel
+    # replaced); layouts as ops/block_attention.layout_of names them
+    ("ds2 self-attn qkv-packed", 2, 10, 4096, 4096, 64, None, "packed",
      "custom_diffusion360_tpu/ops/block_attention.py:275"),
-    ("ds4 self-attn qkv-packed", 2, 20, 1024, 1024, 64, None, True,
+    ("ds4 self-attn qkv-packed", 2, 20, 1024, 1024, 64, None, "packed",
      "custom_diffusion360_tpu/ops/block_attention.py:275"),
-    ("512^2 ds2 self-attn", 2, 20, 256, 256, 64, None, False,
+    ("512^2 ds2 self-attn", 2, 20, 256, 256, 64, None, "bhnd",
      "custom_diffusion360_tpu/ops/block_attention.py:123"),
-    ("kv_len-masked", 2, 20, 1024, 384, 64, 300, False,
+    ("kv_len-masked", 2, 20, 1024, 384, 64, 300, "bnhd",
      "custom_diffusion360_tpu/ops/block_attention.py:123"),
-    ("VAE mid-block d512", 1, 1, 16384, 16384, 512, None, False,
+    ("VAE mid-block d512", 1, 1, 16384, 16384, 512, None, "bhnd",
      "custom_diffusion360_tpu/ops/attention.py:149"),
 ]
+ATTN_SOURCES = {64: "custom_diffusion360_torch/csrc/attention_sm90.cu",
+                512: "custom_diffusion360_torch/csrc/attention.cu"}
 # bf16 kernel (bf16 P in P.V, bf16 output) vs the f32 plain version on the
 # same bf16 inputs: one bf16 rounding of the largest output is at most 2**-8
 # of max|ref|, the bf16 P adds about 2**-9 of an output
@@ -161,29 +221,43 @@ def budget_ms(elements):
     return 150.0 if elements > 1 << 22 else 60.0
 
 
+def attention_operands(torch, gen, b, h, n, m, d, layout):
+    """q (b, h, n, d) and k, v (b, h, m, d) bf16 N(0, 1) in ``layout``:
+    "packed" (views of one (b, n, 3*h*d) to_qkv output; n == m), "bnhd"
+    (views of (b, n, h, d) storage) or "bhnd" (contiguous). Returns (q, k,
+    v, q5): q5 the packed (b, 3, h, n, d) view, else None."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    if layout == "packed":
+        q5 = randn(b, n, 3 * h * d).view(b, n, 3, h, d).permute(0, 2, 3, 1, 4)
+        return q5[:, 0], q5[:, 1], q5[:, 2], q5
+    if layout == "bnhd":
+        return (randn(b, n, h, d).transpose(1, 2), randn(b, m, h, d).transpose(1, 2),
+                randn(b, m, h, d).transpose(1, 2), None)
+    if layout == "bhnd":
+        return randn(b, h, n, d), randn(b, h, m, d), randn(b, h, m, d), None
+    raise ValueError(f"no phase-2 operands for attention layout {layout!r}")
+
+
 def check_attention(torch, results, cases=ATTN_CASES):
     import torch.nn.functional as F
 
     from custom_diffusion360_torch.ops.block_attention import (
-        attention_fwd,
         attention_plain,
         block_attention,
         block_attention_qkv_fused,
+        layout_of,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for label, b, h, n, m, d, kv_len, packed, replaces in cases:
+    for label, b, h, n, m, d, kv_len, layout, replaces in cases:
         scale = d**-0.5
-        if packed:
-            qkv = torch.randn((b, n, 3 * h * d), generator=gen, device="cuda",
-                              dtype=torch.bfloat16)
-            q5 = qkv.view(b, n, 3, h, d).permute(0, 2, 3, 1, 4)
-            q, k, v = q5[:, 0], q5[:, 1], q5[:, 2]
+        q, k, v, q5 = attention_operands(torch, gen, b, h, n, m, d, layout)
+        assert layout_of(q) == layout, (layout_of(q), layout)
+        if q5 is not None:
             run = lambda: block_attention_qkv_fused(q5, scale)  # noqa: E731
         else:
-            q = torch.randn((b, h, n, d), generator=gen, device="cuda", dtype=torch.bfloat16)
-            k = torch.randn((b, h, m, d), generator=gen, device="cuda", dtype=torch.bfloat16)
-            v = torch.randn((b, h, m, d), generator=gen, device="cuda", dtype=torch.bfloat16)
             run = lambda: block_attention(q, k, v, scale, kv_len)  # noqa: E731
         got = run()
         torch.cuda.synchronize()
@@ -194,26 +268,30 @@ def check_attention(torch, results, cases=ATTN_CASES):
         ok = math.isfinite(err) and err <= tol
         del ref
         ms = time_ms(run, budget_ms=budget_ms(n * m * b * h))
+        dev_ms = graph_ms(run)
         plain_ms = time_ms(lambda: attention_plain(q, k, v, scale, kv_len), max_iters=5)
         mask = None
         if kv_len is not None:
             mask = (torch.arange(m, device="cuda") < kv_len).expand(n, m)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)  # noqa: E731
+        lib_ms, lib_dev_ms = time_ms(sdpa), graph_ms(sdpa)
         keys = m if kv_len is None else kv_len
         nbytes = 2 * (b * h * n * d * 2 + b * h * keys * d * 2)
         bms, by = bound(nbytes, 4.0 * b * h * n * keys * d)
         results.append(dict(
             name=f"attention_fwd [{label} b{b} h{h} n{n} m{m} d{d}"
-                 + (f" kv_len{kv_len}" if kv_len else "") + "]",
-            route="cuda", source="custom_diffusion360_torch/csrc/attention.cu",
-            replaces=replaces, max_abs_err=err, tol=tol, ref_rms=ref_rms, ms=ms,
+                 + (f" kv_len{kv_len}" if kv_len else "") + f" {layout}]",
+            route="cuda", source=ATTN_SOURCES[d], replaces=replaces, layout=layout,
+            max_abs_err=err, tol=tol, ref_rms=ref_rms, ms=ms, device_ms=dev_ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-            ok=ok, _key=("attention", (b, h, n, m, d, m if kv_len is None else kv_len)),
+            library_device_ms=lib_dev_ms, device_ms_from="CUDA-graph replay",
+            ok=ok, _key=("attention", (b, h, n, m, d, keys, layout)),
         ))
-        log(f"[kernels] attention {label}: err {err:.3e} (tol {tol:.3e} = {ATTN_TOL} "
+        log(f"[kernels] attention {label} ({layout}): err {err:.3e} (tol {tol:.3e} = {ATTN_TOL} "
             f"x max|ref| {ref_max:.4f}; ref rms {ref_rms:.4f}) "
-            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms sdpa {lib_ms:.3f} ms "
-            f"bound {bms:.4f} ms ({by}) {'OK' if ok else 'FAIL'}")
+            f"kernel {ms:.4f} ms (device {dev_ms:.4f}) plain {plain_ms:.3f} ms sdpa "
+            f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f}) bound {bms:.4f} ms ({by}; "
+            f"{bms / dev_ms:.1%} of it on the device) {'OK' if ok else 'FAIL'}")
 
 
 def check_bilinear(torch, results, cases=BILINEAR_CASES):
@@ -262,8 +340,9 @@ def check_bilinear(torch, results, cases=BILINEAR_CASES):
 
 
 def _norm_params(torch, gen, c, dtype):
-    """Scale and bias in the activation dtype, as the models on the card
-    pass them (the wrappers copy them to f32 for the kernel)."""
+    """Scale and bias in ``dtype``, as the models on the card pass them (the
+    LayerNorm kernel reads them as they are; the GroupNorm wrapper copies
+    them to f32)."""
     scale = torch.randn((c,), generator=gen, device="cuda") * 0.1 + 1.0
     return scale.to(dtype), torch.randn((c,), generator=gen, device="cuda").to(dtype)
 
@@ -273,32 +352,38 @@ def _norm_tol(torch, dtype):
 
 
 def check_layer_norm(torch, results, shapes):
-    """LayerNorm kernel vs ``_ln_plain`` at (rows, C, dtype); yardstick
-    F.layer_norm. Inputs N(1, 3^2): an offset the statistics must survive."""
+    """LayerNorm kernel vs ``_ln_plain`` at (rows, C, x dtype, parameter
+    dtype); yardstick F.layer_norm. Inputs N(1, 3^2): an offset the
+    statistics must survive. Timed as the sampling paths call it, under
+    inference mode (no autograd Function)."""
     import torch.nn.functional as F
 
     from custom_diffusion360_torch.ops.norms import _ln_plain, layer_norm_fused
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for rows, c, dt in shapes:
+    for rows, c, dt, pdt in shapes:
         dtype = DT[dt]
         x = (torch.randn((rows, c), generator=gen, device="cuda") * 3.0 + 1.0).to(dtype)
-        s, b = _norm_params(torch, gen, c, dtype)
+        s, b = _norm_params(torch, gen, c, DT[pdt])
         got = layer_norm_fused(x, s, b, 1e-5)
         torch.cuda.synchronize()
         ref = _ln_plain(x.float(), s, b, 1e-5)
         err, tol = float((got.float() - ref).abs().max()), _norm_tol(torch, dtype) * float(
             ref.abs().max())
         budget = budget_ms(rows * c)
-        ms = time_ms(lambda: layer_norm_fused(x, s, b, 1e-5), budget_ms=budget)
-        plain_ms = time_ms(lambda: _ln_plain(x, s, b, 1e-5), budget_ms=budget, max_iters=5)
-        lib_ms = time_ms(lambda: F.layer_norm(x, (c,), s, b, 1e-5), budget_ms=budget)
+        run = lambda: layer_norm_fused(x, s, b, 1e-5)  # noqa: E731
+        s_lib, b_lib = s.to(dtype), b.to(dtype)  # F.layer_norm's parameters in x's dtype
+        lib = lambda: F.layer_norm(x, (c,), s_lib, b_lib, 1e-5)  # noqa: E731
+        with torch.inference_mode():
+            ms, dev_ms = time_ms(run, budget_ms=budget), graph_ms(run)
+            plain_ms = time_ms(lambda: _ln_plain(x, s, b, 1e-5), budget_ms=budget, max_iters=5)
+            lib_ms, lib_dev_ms = time_ms(lib, budget_ms=budget), graph_ms(lib)
         bms, by = bound(2 * x.numel() * x.element_size() + 2 * c * s.element_size(), 8.0 * x.numel(),
                         H100_F32_FLOPS)
-        _row(results, f"layer_norm_fused [rows{rows} C{c} {dt}]",
+        _row(results, f"layer_norm_fused [rows{rows} C{c} {dt} params {pdt}]",
              "custom_diffusion360_torch/csrc/layer_norm.cu",
              "custom_diffusion360_tpu/ops/norms.py:64", err, tol, ms, plain_ms, bms, by, lib_ms,
-             ("layer_norm", (rows, c, dt)), "F.layer_norm")
+             ("layer_norm", (rows, c, dt, pdt)), "F.layer_norm", dev_ms, lib_dev_ms)
 
 
 def check_group_norm(torch, results, shapes):
@@ -442,31 +527,40 @@ def check_bnhd(torch, results, shapes):
         ref = attention_plain(qt.float(), kt.float(), vt.float(), scale, kv_len).transpose(1, 2)
         err, tol = float((got.float() - ref).abs().max()), ATTN_TOL * float(ref.abs().max())
         del got, ref
-        ms = time_ms(lambda: attention_bnhd_fwd(q, k, v, scale, kv_len),
-                     budget_ms=budget_ms(n * m * b * h))
+        run = lambda: attention_bnhd_fwd(q, k, v, scale, kv_len)  # noqa: E731
+        ms, dev_ms = time_ms(run, budget_ms=budget_ms(n * m * b * h)), graph_ms(run)
         plain_ms = time_ms(lambda: attention_plain(qt, kt, vt, scale, kv_len), max_iters=5)
         mask = None if kv_len is None else (torch.arange(m, device="cuda") < kv_len).expand(n, m)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                                scale=scale))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                                                      scale=scale)
+        lib_ms, lib_dev_ms = time_ms(sdpa), graph_ms(sdpa)
         nbytes = 2 * (b * h * n * d * 2 + b * h * kv * d * 2)
         bms, by = bound(nbytes, 4.0 * b * h * n * kv * d)
         _row(results, f"attention_bnhd_fwd [b{b} n{n} h{h} m{m} d{d}"
-             + (f" kv_len{kv_len}" if kv_len else "") + "]",
-             "custom_diffusion360_torch/csrc/attention.cu",
+             + (f" kv_len{kv_len}" if kv_len else "") + " bnhd]", ATTN_SOURCES[d],
              "custom_diffusion360_tpu/ops/block_attention.py:218", err, tol, ms, plain_ms, bms,
-             by, lib_ms, ("bnhd", (b, n, h, m, d, kv)), "SDPA")
+             by, lib_ms, ("bnhd", (b, n, h, m, d, kv)), "SDPA", dev_ms, lib_dev_ms)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
 
 def _row(results, name, source, replaces, err, tol, ms, plain_ms, bms, by, lib_ms, key,
-         lib_name):
+         lib_name, dev_ms=None, lib_dev_ms=None):
+    """One phase-2 row; ``dev_ms`` / ``lib_dev_ms``: the CUDA-graph replay
+    times of the kernel and the library call, where measured."""
     ok = math.isfinite(err) and err <= tol
-    results.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                        bound_by=by, library_ms=lib_ms, ok=ok, _key=key))
+    row = dict(name=name, route="cuda", source=source, replaces=replaces,
+               max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, library_ms=lib_ms, ok=ok, _key=key)
+    device = ""
+    if dev_ms is not None:
+        row.update(device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                   device_ms_from="CUDA-graph replay")
+        device = (f" device {dev_ms:.4f} ms ({bms / dev_ms:.1%} of the bound) vs "
+                  f"{lib_dev_ms:.4f} ms;")
+    results.append(row)
     log(f"[kernels] {name}: err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
-        f"{plain_ms:.4f} ms {lib_name} {lib_ms:.4f} ms bound {bms:.4f} ms ({by}) "
+        f"{plain_ms:.4f} ms {lib_name} {lib_ms:.4f} ms;{device} bound {bms:.4f} ms ({by}) "
         f"{'OK' if ok else 'FAIL'}")
 
 
@@ -478,10 +572,11 @@ def check_launched(torch, results, launched):
     for kernel, shape in sorted(set(launched) - done, key=str):
         todo.setdefault(kernel, []).append(shape)
     t0 = time.time()
-    attn = [("main path", b, h, n, m, d, None if kv == m else kv, False,
+    attn = [("main path", b, h, n, m, d, None if kv == m else kv, layout,
              "custom_diffusion360_tpu/ops/" + ("attention.py:149" if d == 512 and m > 4096
+                                              else "block_attention.py:275" if layout == "packed"
                                               else "block_attention.py:123"))
-            for b, h, n, m, d, kv in todo.pop("attention", [])]
+            for b, h, n, m, d, kv, layout in todo.pop("attention", [])]
     check_attention(torch, results, attn)
     check_bilinear(torch, results, [("main path", mm, h, c, needed_channels(c), p, dt)
                                     for mm, h, w, c, p, dt in todo.pop("bilinear", [])])
@@ -681,7 +776,8 @@ def run_main_path(torch, counters):
 
 TRACE_STEPS = (2, 4)  # sampler steps [2, 4) of a 4-step run, both cached
 KERNEL_GROUPS = (  # device kernels by name, first match wins
-    ("attention kernel", ("attn_fwd_kernel",)),
+    ("attention d64 kernel (sm90)", ("attn_sm90_kernel",)),
+    ("attention d512 kernel", ("attn_fwd_kernel",)),
     ("conv3x3 kernel", ("conv3x3_kernel",)),
     ("bilinear bwd kernel", ("bilinear_bwd_kernel",)),
     ("bilinear kernel", ("bilinear_kernel",)),
@@ -1220,10 +1316,18 @@ def main():
     times = _build.build()
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in times.items()})} "
         f"wall {time.time() - t0:.1f} s")
-    for name, text in _build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+    for name in _build.KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if ("registers" in line or "spill" in line or "error" in line
+                    or (name in FULL_PTXAS_LOG and ("ptxas" in line or "arning" in line))):
                 log(f"[build] {name}: {line.strip()}")
+    counts = sass_counts("attention_sm90", SM90_OPCODES)
+    log(f"[build] attention_sm90 SASS (cuobjdump -sass): "
+        + ", ".join(f"{op} {n}" for op, n in counts.items()))
+    if not counts["HGMMA"] or not counts["UTMALDG"]:
+        print("chip_smoke: the d = 64 attention kernel has no wgmma (HGMMA) or no TMA load "
+              "(UTMALDG) in its SASS", file=sys.stderr)
+        return 1
 
     results = []
     check_attention(torch, results)

@@ -1,17 +1,18 @@
-// Non-causal softmax attention forward for Hopper (sm_90a), bf16 in/out.
+// Non-causal softmax attention forward for Hopper (sm_90a) at head dim 512,
+// bf16 in/out.
 //
-// Replaces the TPU kernels of custom_diffusion360_tpu:
-//   ops/block_attention.py::block_attention_qkv_fused (pallas_call :275)
-//   ops/block_attention.py::block_attention            (pallas_call :123, :143)
+// Replaces the TPU kernels of custom_diffusion360_tpu at d = 512:
 //   jax.experimental.pallas.ops.tpu.flash_attention    (reached via ops/attention.py:149)
+//   ops/block_attention.py::block_attention_bnhd       (pallas_call :218, the bnhd route)
+// Head dim 64 (the UNet and pose-block attention, pallas_call :123, :143,
+// :275) is csrc/attention_sm90.cu.
 //
 // out[b, h, i] = sum_j softmax_j(scale * q[b,h,i] . k[b,h,j]) v[b,h,j], keys
 // j >= kv_len masked out (weight exactly 0, as the TPU kernels' -1e30 logit).
 //
 // Bound on the H100: tensor-core operations (4*n*m*d FLOP per head) at the
-// UNet shapes (d = 64, n = m in {1024, 4096}) and the VAE bottleneck
-// (d = 512, n = m = 16384); the bytes (q, k, v read once, out written once)
-// are 30-250x below the ridge point.
+// VAE bottleneck (d = 512, n = m = 16384); the bytes (q, k, v read once, out
+// written once) are about 250x below the ridge point.
 //
 // Design (FlashAttention-2 layout on mma.sync m16n8k16): one block owns BQ
 // query rows of one (batch, head); K/V tiles of BK keys stream through shared
@@ -21,20 +22,16 @@
 // online softmax (running max and sum in f32, base-2 exponent) and the f32 O
 // accumulator stay in registers, and the S fragments are re-packed as the
 // bf16 A operand of P.V without touching shared memory. Operands are read in
-// place through explicit (batch, head, seq) strides, so the packed
-// (b, n, 3, h, d) output of the UNet's fused to_qkv needs no transpose or
-// split copy. KV tiles past kv_len are skipped (their weights are exactly 0).
-// Rows are padded by 16 bytes so the eight row addresses of an ldmatrix hit
-// distinct banks. Two instantiations:
-//   d = 64 (UNet, 70 calls per UNet evaluation): BQ = BK = 64, 4 warps, Q
-//     fragments held in registers for the whole KV loop;
-//   d = 512 (VAE, one call per decode): a 16 x 512 f32 accumulator does not
-//     fit one warp's registers, so DSPLIT = 2 warps share each row group,
-//     each accumulating 256 columns (128 registers a thread). Both compute the
-//     full S of their rows (the Q K^T work is done twice, 1.5x the FLOP of
-//     the bound) and re-read Q fragments from shared memory each KV tile.
+// place through explicit (batch, head, seq) strides, so (b, n, h, d) views
+// need no transpose copy. KV tiles past kv_len are skipped (their weights are
+// exactly 0). Rows are padded by 16 bytes so the eight row addresses of an
+// ldmatrix hit distinct banks. A 16 x 512 f32 accumulator does not fit one
+// warp's registers, so DSPLIT = 2 warps share each row group, each
+// accumulating 256 columns (128 registers a thread). Both compute the full S
+// of their rows (the Q K^T work is done twice, 1.5x the FLOP of the bound)
+// and re-read Q fragments from shared memory each KV tile.
 //
-// Not yet done (later work): wgmma/TMA and warp specialisation.
+// Not yet done (later work): wgmma/TMA and warp specialisation at d = 512.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,7 +85,6 @@ struct Cfg {
   static constexpr int THREADS = NW * 32;
   static constexpr int DW = D / DSPLIT;  // output columns per warp
   static constexpr int LD = D + 8;       // bf16 pitch of the Q/K/V tiles
-  static constexpr bool kQInRegs = D <= 128;
   static constexpr size_t kSmem = (size_t)(BQ + 4 * BK) * LD * sizeof(bf16);  // Q + 2 stages of K, V
 };
 
@@ -137,7 +133,6 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // ldmatrix row address of this lane in the warp's Q rows
   const bf16* sQw = sQ + (rg * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-  unsigned qf[C::kQInRegs ? D / 16 : 1][4];
   float acc[DW / 8][4];
 #pragma unroll
   for (int j = 0; j < DW / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -157,12 +152,6 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (C::kQInRegs) {
-      if (kt == 0) {
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], sQw + kk * 16);
-      }
-    }
     const bf16* Ks = sK + st * BK * LD;
     const bf16* Vs = sV + st * BK * LD;
 
@@ -172,12 +161,7 @@ attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       unsigned a[4];
-      if constexpr (C::kQInRegs) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
-      } else {
-        ldsm_x4(a, sQw + kk * 16);
-      }
+      ldsm_x4(a, sQw + kk * 16);
 #pragma unroll
       for (int nt = 0; nt < BK / 16; ++nt) {
         unsigned b[4];
@@ -271,9 +255,17 @@ template <class C>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, int N, int M,
            int kv_len, float scale, const long long* st, cudaStream_t stream) {
   auto kern = attn_fwd_kernel<C>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+  // the shared-memory attribute once per device, so that a CUDA-graph
+  // capture of the launch sees the launch only
+  static bool attr_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64 || !attr_set[dev]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= 0 && dev < 64) attr_set[dev] = true;
+  }
   dim3 grid((N + C::BQ - 1) / C::BQ, H, B);
   kern<<<grid, C::THREADS, C::kSmem, stream>>>(q, k, v, o, N, M, kv_len, scale, st[0], st[1],
                                                st[2], st[3], st[4], st[5], st[6], st[7],
@@ -285,7 +277,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H, i
 
 // strides: 12 element strides, (batch, head, seq) for q, k, v, out in turn;
 // the head-dim stride is 1. Returns a cudaError_t (0 = launched), or -1 for a
-// head dim this library was not built for.
+// head dim this library was not built for (only 512).
 extern "C" int cd360_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int H, int N, int M, int D,
                                    int kv_len, float scale,
@@ -295,8 +287,6 @@ extern "C" int cd360_attention_fwd(const void* q, const void* k, const void* v,
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch<Cfg<64, 1, 64, 64>>(qp, kp, vp, op, B, H, N, M, kv_len, scale, strides, s);
   if (D == 512)
     return launch<Cfg<512, 2, 64, 32>>(qp, kp, vp, op, B, H, N, M, kv_len, scale, strides, s);
   return -1;

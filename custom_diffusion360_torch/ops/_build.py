@@ -3,17 +3,24 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded through ``ctypes`` (no PyTorch headers, so a
 build takes seconds). Libraries are built at first use into ``_build/`` next
-to the package, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. Nothing is built at import.
+to the package, named by a hash of the source, the local headers it
+includes (``#include "x.cuh"``) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused. Nothing is built at import.
+``attention_sm90`` reaches the driver's ``cuTensorMapEncodeTiled`` through
+``cudaGetDriverEntryPoint``, so no library links ``-lcuda``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -22,8 +29,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
-KERNELS = ("attention", "bilinear_sample", "bilinear_sample_bwd", "layer_norm", "group_norm",
-           "conv3x3")
+KERNELS = ("attention", "attention_sm90", "bilinear_sample", "bilinear_sample_bwd", "layer_norm",
+           "group_norm", "conv3x3")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +40,11 @@ _SIGNATURES = {
     "attention": (
         "cd360_attention_fwd",
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+         ctypes.POINTER(ctypes.c_longlong), _P],
+    ),
+    "attention_sm90": (
+        "cd360_attention_sm90",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
          ctypes.POINTER(ctypes.c_longlong), _P],
     ),
     "bilinear_sample": (
@@ -45,7 +57,7 @@ _SIGNATURES = {
     ),
     "layer_norm": (
         "cd360_layer_norm",
-        [_P, _P, _P, _P, ctypes.c_longlong, _I, _F, _I, _P],
+        [_P, _P, _P, _P, ctypes.c_longlong, _I, _F, _I, _I, _P],
     ),
     "group_norm": (
         "cd360_group_norm",
@@ -74,10 +86,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen=None) -> list:
+    """``path`` and the local headers it includes, recursively, in order."""
+    seen = [] if seen is None else seen
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+        header = path.parent / inc.decode()
+        if header.exists():
+            _sources(header, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(CSRC / f"{name}.cu"):
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> dict:
@@ -106,10 +135,20 @@ def build(names=KERNELS) -> dict:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return times
+
+
+def build_log(name: str) -> str:
+    """nvcc's and ptxas's output (``-Xptxas -v``) of the build of
+    ``csrc/<name>.cu``, from this process or kept beside the library."""
+    if name in BUILD_LOGS:
+        return BUILD_LOGS[name]
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def load(name: str):
@@ -127,6 +166,21 @@ def load(name: str):
         fn.restype = ctypes.c_int
         _LIBS[name] = fn
     return fn
+
+
+def on_device(index: int):
+    """A context that makes CUDA device ``index`` current; nothing to enter
+    when it already is (the common case, kept off the launch path)."""
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of the current stream on CUDA device ``index``, for a
+    launch (no Stream object: the host's time per launch is the step's
+    time on the sampling paths)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(rc: int, what: str) -> None:

@@ -4,13 +4,18 @@ block_attention.py).
 The TPU package has three Pallas attention kernels on the sampling path:
 ``block_attention_qkv_fused`` (packed (b, 3, h, n, d) operand), the
 whole-KV-resident ``block_attention`` and the library flash kernel for long
-KV. On Hopper one streaming kernel (``csrc/attention.cu``) serves all three:
-it reads q/k/v through explicit strides, so the packed layout costs nothing,
-and it streams KV through shared memory, so the KV length is not limited.
+KV. On Hopper two streaming kernels serve all three, by head dim: d = 64
+(every UNet and pose-block attention) goes to ``csrc/attention_sm90.cu``
+(wgmma, TMA, warp-specialised), d = 512 (the VAE bottleneck) to
+``csrc/attention.cu`` (mma.sync). Both read q/k/v in place through their
+strides, so the packed layout costs nothing, and both stream KV through
+shared memory, so the KV length is not limited. The sm90 kernel reads its
+operands through TMA maps built from the strides that ``tma_map_args``
+computes.
 
-``attention_fwd`` is the one wrapper that launches it: for CUDA tensors it
-launches the kernel (or raises on what the kernel does not take); for CPU
-tensors it runs the plain version ``attention_plain``.
+``attention_fwd`` is the one wrapper that launches them: for CUDA tensors
+it launches the kernel (or raises on what the kernel does not take); for
+CPU tensors it runs the plain version ``attention_plain``.
 
 ``block_attention`` and ``block_attention_qkv_fused`` are autograd
 Functions around it: the forward is ``attention_fwd``, the backward the
@@ -27,6 +32,7 @@ apart, in ``attention_bnhd_fwd``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 from typing import Optional
 
@@ -35,6 +41,7 @@ import torch
 from . import _build
 
 KERNEL_HEAD_DIMS = (64, 512)
+SM90_HEAD_DIM = 64  # csrc/attention_sm90.cu; d = 512 runs csrc/attention.cu
 
 
 def attention_plain(q, k, v, scale: float, kv_len: Optional[int] = None):
@@ -63,45 +70,121 @@ def _check_operand(t, name):
         raise ValueError(f"attention kernel needs {name} 16-byte aligned")
 
 
+def tma_map_args(q, k, v, out):
+    """What ``csrc/attention_sm90.cu`` encodes its four TMA maps from, for
+    (b, h, n, 64) q and out and (b, h, m, 64) k and v views of bf16 storage:
+    ``(offsets, strides)``, the byte offset of each operand's first element
+    in its storage and its (seq, head, batch) byte strides, q, k, v, out in
+    turn (12 strides). Each map is 4-D over (d, seq, head, batch); the C side
+    encodes exactly these. A dim of extent 1 is never stepped, but TMA still
+    wants a valid stride there: it gets the operand's whole span, rounded up
+    to 16 bytes. Raises on a non-bf16 operand, d != 64, a head-dim stride
+    other than 1, and an offset or stride that is not a multiple of 16
+    bytes (TMA's alignment). Memoized on the operands' dtypes, shapes,
+    strides and offsets: the main paths launch a few shapes thousands of
+    times, and the host's time per launch is the step's time."""
+    return _tma_map_args(*((t.dtype, tuple(t.shape), t.stride(), t.storage_offset())
+                           for t in (q, k, v, out)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _tma_map_args(*operands):
+    offsets, strides = [], []
+    for (dtype, shape, stride, offset), name in zip(operands, ("q", "k", "v", "out")):
+        if dtype != torch.bfloat16:
+            raise TypeError(f"attention kernel takes bfloat16, got {name} {dtype}")
+        if len(shape) != 4 or shape[-1] != SM90_HEAD_DIM:
+            raise ValueError(f"the sm90 attention kernel is built for d = {SM90_HEAD_DIM}, "
+                             f"got {name} {shape}")
+        if stride[-1] != 1:
+            raise ValueError(f"attention kernel needs a unit head-dim stride, got {name} "
+                             f"strides {stride}")
+        size = 2  # bytes of a bf16
+        span = -(-max(st * n for st, n in zip(stride[:3], shape[:3])) * size // 16) * 16
+        for dim in (2, 1, 0):  # seq, head, batch
+            st = stride[dim] * size if shape[dim] > 1 else max(span, 16)
+            if st % 16:
+                raise ValueError(f"attention kernel needs {name} strides of a multiple of "
+                                 f"16 bytes, got strides {stride} (elements)")
+            strides.append(st)
+        if offset * size % 16:
+            raise ValueError(f"attention kernel needs {name} 16-byte aligned, got a "
+                             f"storage offset of {offset * size} bytes")
+        offsets.append(offset * size)
+    return tuple(offsets), tuple(strides)
+
+
+@functools.lru_cache(maxsize=1024)
+def _longlongs(values):
+    """A ctypes long long array of ``values``, one per tuple: the C entry
+    points read it during the call and keep no pointer to it."""
+    return (ctypes.c_longlong * len(values))(*values)
+
+
 def _launch(q, k, v, scale: float, kv_len: Optional[int]):
-    """One launch of ``csrc/attention.cu`` on CUDA (b, h, n, d) q and
-    (b, h, m, d) k, v -> (b, h, n, d) view of (b, n, h, d) storage; raises
-    on what the kernel does not take. Counts nothing."""
+    """One launch of ``csrc/attention_sm90.cu`` (d = 64) or
+    ``csrc/attention.cu`` (d = 512) on CUDA (b, h, n, d) q and (b, h, m, d)
+    k, v -> (b, h, n, d) view of (b, n, h, d) storage; raises on what the
+    kernel does not take. Counts nothing."""
     b, h, n, d = q.shape
     m = k.shape[2]
     if k.shape != (b, h, m, d) or v.shape != (b, h, m, d):
         raise ValueError(f"attention shapes q {q.shape} k {k.shape} v {v.shape}")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"attention kernel is built for d in {KERNEL_HEAD_DIMS}, got {d}")
-    if not (q.device == k.device == v.device) or q.device.type != "cuda":
+    index = q.get_device()  # -1 off the card
+    if index < 0 or k.get_device() != index or v.get_device() != index:
         raise ValueError("attention kernel needs q, k, v on one CUDA device")
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check_operand(t, name)
     kv_len = m if kv_len is None else int(kv_len)
     if not 0 < kv_len <= m:
         raise ValueError(f"kv_len {kv_len} outside (0, {m}]")
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
-    )
-    fn = _build.load("attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, h, n, m, d, kv_len, float(scale), strides, stream)
-    _build.check(rc, "attention_fwd")
+    if d == SM90_HEAD_DIM:
+        _, strides = tma_map_args(q, k, v, out)  # checks dtype, strides and offsets
+        for t, name in ((q, "q"), (k, "k"), (v, "v")):
+            if t.data_ptr() % 16:
+                raise ValueError(f"attention kernel needs {name} 16-byte aligned")
+        name, args = "attention_sm90", (_longlongs(strides),)
+        call = (b, h, n, m, kv_len, float(scale))
+    else:
+        for t, name in ((q, "q"), (k, "k"), (v, "v")):
+            _check_operand(t, name)
+        name, args = "attention", ((ctypes.c_longlong * 12)(
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]),)
+        call = (b, h, n, m, d, kv_len, float(scale))
+    fn = _build.load(name)
+    with _build.on_device(index):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *call, *args,
+                _build.current_stream(index))
+    _build.check(rc, name)
     return out
+
+
+def layout_of(q):
+    """How a (b, h, n, d) operand lies in memory, from its strides: "packed"
+    (a view of the (b, n, 3, h, d) to_qkv output), "bnhd" (a view of
+    (b, n, h, d) storage), "bhnd" (contiguous) or "strided"."""
+    b, h, n, d = q.shape
+    if q.stride(2) == d and q.stride(1) == n * d:
+        return "bhnd"
+    if q.stride(1) == d and q.stride(2) == h * d:
+        return "bnhd"
+    if q.stride(1) == d and q.stride(2) == 3 * h * d:
+        return "packed"
+    return "strided"
 
 
 def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None):
     """Non-causal attention. q: (b, h, n, d); k, v: (b, h, m, d), any
     strides with a unit last stride -> (b, h, n, d).
 
-    CUDA tensors launch ``csrc/attention.cu`` (bf16, d in KERNEL_HEAD_DIMS);
-    the result is a (b, h, n, d) view of (b, n, h, d) storage, so callers in
-    the models' (b, n, h, d) layout transpose back for free. CPU tensors run
-    ``attention_plain``. Launches are counted in ``attention_fwd.launches``,
-    and by shape (b, h, n, m, d, kv_len) in ``attention_fwd.launches_by_shape``.
+    CUDA tensors launch ``csrc/attention_sm90.cu`` (d = 64) or
+    ``csrc/attention.cu`` (d = 512), bf16; the result is a (b, h, n, d) view
+    of (b, n, h, d) storage, so callers in the models' (b, n, h, d) layout
+    transpose back for free. CPU tensors run ``attention_plain``. Launches
+    are counted in ``attention_fwd.launches``, and by shape and q's layout
+    (b, h, n, m, d, kv_len, ``layout_of(q)``) in
+    ``attention_fwd.launches_by_shape``.
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, kv_len)
@@ -109,7 +192,8 @@ def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None):
     b, h, n, d = q.shape
     m = k.shape[2]
     attention_fwd.launches += 1
-    attention_fwd.launches_by_shape[(b, h, n, m, d, m if kv_len is None else int(kv_len))] += 1
+    attention_fwd.launches_by_shape[
+        (b, h, n, m, d, m if kv_len is None else int(kv_len), layout_of(q))] += 1
     return out
 
 
@@ -215,12 +299,21 @@ class _AttentionBNHD(torch.autograd.Function):
         return (*attention_bwd_bnhd_plain(*ctx.saved_tensors, g, *ctx.cfg), None, None)
 
 
+def _needs_grad(*tensors):
+    """Whether a gradient can flow to any of ``tensors``: the wrappers skip
+    their autograd Functions otherwise (inference mode, no_grad, frozen
+    inputs), which saves the host a few microseconds a launch."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def block_attention(q, k, v, scale: float, kv_len: Optional[int] = None):
     """softmax(q k^T * scale) v. q: (b, h, n, d); k, v: (b, h, m, d).
     Keys at or beyond ``kv_len`` are masked. Differentiable. (JAX:
     block_attention; its block_q is a TPU tiling knob with no counterpart
     here.)"""
-    return _Attention.apply(q, k, v, scale, kv_len)
+    if _needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, scale, kv_len)
+    return attention_fwd(q, k, v, scale, kv_len)
 
 
 def block_attention_qkv_fused(qkv, scale: float):
@@ -228,7 +321,9 @@ def block_attention_qkv_fused(qkv, scale: float):
     strided view of the (b, n, 3*h*d) fused to_qkv output -> (b, h, n, d).
     The kernel reads q, k and v in place; the backward returns the stacked
     (dq, dk, dv). (JAX: block_attention_qkv_fused.)"""
-    return _AttentionQKV.apply(qkv, scale)
+    if _needs_grad(qkv):
+        return _AttentionQKV.apply(qkv, scale)
+    return attention_fwd(qkv[:, 0], qkv[:, 1], qkv[:, 2], scale, None)
 
 
 def block_attention_bnhd(q, k, v, scale: float, kv_len: Optional[int] = None):
@@ -236,4 +331,6 @@ def block_attention_bnhd(q, k, v, scale: float, kv_len: Optional[int] = None):
     k, v: (b, m, h, d). Keys at or beyond ``kv_len`` are masked.
     Differentiable; the backward is the f32 recompute. (JAX:
     block_attention_bnhd; block_q is a TPU tiling knob.)"""
-    return _AttentionBNHD.apply(q, k, v, scale, kv_len)
+    if _needs_grad(q, k, v):
+        return _AttentionBNHD.apply(q, k, v, scale, kv_len)
+    return attention_bnhd_fwd(q, k, v, scale, kv_len)

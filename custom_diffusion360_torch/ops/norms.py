@@ -6,13 +6,17 @@ custom call is a synchronization point in XLA's fused schedule; on a CUDA
 stream a kernel is just the next launch, so here they carry every norm of
 the models on the card: ``csrc/layer_norm.cu`` and ``csrc/group_norm.cu``.
 
-``layer_norm_fused`` and ``group_norm_fused`` are autograd Functions: the
-forward launches the kernel for CUDA tensors (or raises on what it does
-not take) and runs the plain version (``_ln_plain`` / ``_gn_plain``, f32
-statistics) for CPU tensors; the backward is the plain closed form, in
-f32, as the JAX package's ``_ln_bwd`` / ``_gn_bwd``. Launches are counted
-on ``layer_norm_fused`` / ``group_norm_fused`` (``launches`` and
-``launches_by_shape``).
+``layer_norm_fused`` and ``group_norm_fused`` launch the kernel for CUDA
+tensors (or raise on what it does not take) and run the plain version
+(``_ln_plain`` / ``_gn_plain``, f32 statistics) for CPU tensors. Where a
+gradient is wanted they go through autograd Functions whose backward is the
+plain closed form, in f32, as the JAX package's ``_ln_bwd`` / ``_gn_bwd``;
+LayerNorm skips the Function when no gradient can flow (inference mode,
+``no_grad``, or no input that requires grad), since it runs some 200 times
+a UNet step and the host's time per launch is the step's time. The
+LayerNorm kernel reads bf16 or f32 scale and bias as they are; GroupNorm
+still copies them to f32. Launches are counted on ``layer_norm_fused`` /
+``group_norm_fused`` (``launches`` and ``launches_by_shape``).
 """
 from __future__ import annotations
 
@@ -68,22 +72,44 @@ def _f32(t, device):
     return t.to(device=device, dtype=torch.float32).contiguous()
 
 
+def _check_params(x, scale, bias, what):
+    """Scale and bias as the LayerNorm kernel reads them: (C,) contiguous,
+    16-byte aligned, both bf16 or both f32, on x's device."""
+    c = x.shape[-1]
+    for t, name in ((scale, "scale"), (bias, "bias")):
+        if t.dtype not in _DTYPES or t.dtype != scale.dtype:
+            raise TypeError(f"{what} kernel takes scale and bias both bf16 or both f32, got "
+                            f"{scale.dtype} and {bias.dtype}")
+        if t.shape != (c,) or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what} kernel needs a contiguous, 16-byte aligned {name} of "
+                             f"shape ({c},), got {tuple(t.shape)}")
+        if t.get_device() != x.get_device():
+            raise ValueError(f"{what} kernel needs {name} on {x.device}, got {t.device}")
+
+
+_ln_kernel = None  # the loaded ctypes entry point, kept off the per-call path
+
+
 def _ln_forward(x, scale, bias, eps):
+    global _ln_kernel
     if x.device.type == "cpu":
         return _ln_plain(x, scale, bias, eps)
     _check_input(x, "layer_norm")
+    _check_params(x, scale, bias, "layer_norm")
     c = x.shape[-1]
     rows = x.numel() // c
     y = torch.empty_like(x)
-    scale, bias = _f32(scale, x.device), _f32(bias, x.device)
-    fn = _build.load("layer_norm")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, c,
-                float(eps), _DTYPES[x.dtype], stream)
+    if _ln_kernel is None:
+        _ln_kernel = _build.load("layer_norm")
+    index = x.get_device()
+    with _build.on_device(index):
+        rc = _ln_kernel(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, c,
+                        float(eps), _DTYPES[x.dtype], _DTYPES[scale.dtype],
+                        _build.current_stream(index))
     _build.check(rc, "layer_norm_fused")
     layer_norm_fused.launches += 1
-    layer_norm_fused.launches_by_shape[(rows, c, _DTYPE_NAMES[x.dtype])] += 1
+    layer_norm_fused.launches_by_shape[
+        (rows, c, _DTYPE_NAMES[x.dtype], _DTYPE_NAMES[scale.dtype])] += 1
     return y
 
 
@@ -178,8 +204,12 @@ class _GroupNorm(torch.autograd.Function):
 
 def layer_norm_fused(x, scale, bias, eps: float = 1e-5):
     """LayerNorm over the last axis with f32 statistics. x: (..., C) bf16 or
-    f32 (C % 8 == 0 on the card); scale, bias: (C,). Output in x.dtype."""
-    return _LayerNorm.apply(x, scale, bias, eps)
+    f32 (C % 8 == 0 on the card); scale, bias: (C,), both bf16 or both f32.
+    Output in x.dtype. The autograd Function only when a gradient can flow."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _LayerNorm.apply(x, scale, bias, eps)
+    return _ln_forward(x, scale, bias, eps)
 
 
 def group_norm_fused(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,

@@ -111,6 +111,79 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
 
 
 # ---------------------------------------------------------------------------
+# the TMA map arguments of csrc/attention_sm90.cu (d = 64), from the strides
+# of each layout the paths launch, against values worked out by hand
+# ---------------------------------------------------------------------------
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _out(b, n, h):
+    return _bf16(b, n, h, 64).transpose(1, 2)  # what the wrapper allocates
+
+
+def _packed(b, n, h):
+    q5 = _bf16(b, n, 3 * h * 64).view(b, n, 3, h, 64).permute(0, 2, 3, 1, 4)
+    return q5[:, 0], q5[:, 1], q5[:, 2], _out(b, n, h)
+
+
+def _bnhd_views(b, n, m, h):
+    q, k, v = _bf16(b, n, h, 64), _bf16(b, m, h, 64), _bf16(b, m, h, 64)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), _out(b, n, h)
+
+
+def _bhnd(b, n, m, h):
+    return _bf16(b, h, n, 64), _bf16(b, h, m, 64), _bf16(b, h, m, 64), _out(b, n, h)
+
+
+@pytest.mark.parametrize("operands,offsets,strides,layout", [
+    # (b, n, 3, h, d) = (2, 5, 3, 3, 64): a token row is 3 * 3 * 64 * 2 = 1152
+    # bytes; k and v start 3 heads (384 bytes) and 6 heads (768) after q
+    (_packed(2, 5, 3), [0, 384, 768, 0],
+     [1152, 128, 5760] * 3 + [384, 128, 1920], "packed"),
+    # (b, n, h, d) storage: q (2, 5, 3), k/v (2, 7, 3)
+    (_bnhd_views(2, 5, 7, 3), [0] * 4,
+     [384, 128, 1920] + [384, 128, 2688] * 2 + [384, 128, 1920], "bnhd"),
+    # contiguous (b, h, n, d): q (2, 3, 5), k/v (2, 3, 7)
+    (_bhnd(2, 5, 7, 3), [0] * 4,
+     [128, 640, 1920] + [128, 896, 2688] * 2 + [384, 128, 1920], "bhnd"),
+    # b = h = 1: the unit dims get the operand's span (5 rows = 640 bytes)
+    (_bhnd(1, 5, 5, 1), [0] * 4, [128, 640, 640] * 4, "bhnd"),
+])
+def test_tma_map_args_match_hand_worked_strides(operands, offsets, strides, layout):
+    assert tba.tma_map_args(*operands) == (tuple(offsets), tuple(strides))
+    assert tba.layout_of(operands[0]) == layout
+
+
+@pytest.mark.parametrize("bad,exc,match", [
+    (torch.zeros((1, 2, 8, 64)), TypeError, "bfloat16"),                    # f32
+    (_bf16(1, 2, 8, 32), ValueError, "d = 64"),                              # head dim
+    (_bf16(1, 2, 8, 70)[..., :64], ValueError, "multiple of 16 bytes"),      # 140-byte rows
+    (_bf16(1, 2, 8, 72)[..., 4:68], ValueError, "16-byte aligned"),          # 8-byte offset
+    (_bf16(1, 2, 64, 64).transpose(2, 3), ValueError, "unit head-dim"),
+])
+def test_tma_map_args_raise_on_what_tma_cannot_take(bad, exc, match):
+    ok = _bf16(1, 2, 8, 64)
+    with pytest.raises(exc, match=match):
+        tba.tma_map_args(bad, ok, ok, ok)
+
+
+def test_library_hash_covers_local_headers(tmp_path, monkeypatch):
+    """An edited local header rebuilds the library that includes it."""
+    from custom_diffusion360_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n#include <cuda_runtime.h>\n')
+    (tmp_path / "k.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    assert _build._sources(tmp_path / "k.cu") == [tmp_path / "k.cu", tmp_path / "k.cuh"]
+    (tmp_path / "k.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != first
+
+
+# ---------------------------------------------------------------------------
 # gradients: the port's autograd (plain f32 recompute, as the JAX custom
 # VJP) against the JAX package's custom-VJP gradients; 1e-5 of max|g|
 # ---------------------------------------------------------------------------

@@ -5,6 +5,9 @@ the JAX package, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
+Attention at d = 64 runs ``csrc/attention_sm90.cu`` (wgmma, TMA), at
+d = 512 ``csrc/attention.cu``.
+
 Tolerances: attention, bf16 kernel (bf16 P in P.V and bf16 output) vs the
 f32 plain version on the same bf16 inputs, 1e-2 of max|ref| (one bf16
 rounding of the largest output is at most 2**-8 of it); bilinear, one bf16
@@ -62,23 +65,33 @@ def _randn(gen, *shape, dtype=torch.bfloat16):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-@pytest.mark.parametrize("n,m,d,kv_len", [
-    (256, 256, 64, None), (200, 333, 64, None), (130, 256, 64, 77),
-    (100, 300, 512, None), (64, 96, 512, 50),
-])
-def test_attention_kernel_matches_plain(gen, n, m, d, kv_len):
-    q, k, v = _randn(gen, 2, 3, n, d), _randn(gen, 2, 3, m, d), _randn(gen, 2, 3, m, d)
+# d = 64 (csrc/attention_sm90.cu): every (n, m) of these lengths, with all
+# keys and with a kv_len that ends inside a 128-key tile; ragged q tiles
+# (200), m below one tile (64), and the UNet's 1024 / 4096
+_SM90_LENGTHS = (64, 200, 256, 1024, 4096)
+_ATTN_CASES = [
+    (2, 3, 256, 256, 64, None), (2, 3, 200, 333, 64, None), (2, 3, 130, 256, 64, 77),
+    (2, 3, 100, 300, 512, None), (2, 3, 64, 96, 512, 50),
+    (3, 20, 1024, 1024, 64, None), (3, 20, 1024, 1024, 64, 777),  # b * h = 60
+] + [(2, 3, n, m, 64, kv) for n in _SM90_LENGTHS for m in _SM90_LENGTHS
+     for kv in (None, max(1, 3 * m // 4 - 5))]
+
+
+@pytest.mark.parametrize("b,h,n,m,d,kv_len", _ATTN_CASES)
+def test_attention_kernel_matches_plain(gen, b, h, n, m, d, kv_len):
+    q, k, v = _randn(gen, b, h, n, d), _randn(gen, b, h, m, d), _randn(gen, b, h, m, d)
     before = attention_fwd.launches
     got = block_attention(q, k, v, d**-0.5, kv_len)
     torch.cuda.synchronize()
     assert attention_fwd.launches == before + 1
     ref = attention_plain(q.float(), k.float(), v.float(), d**-0.5, kv_len)
-    assert got.shape == (2, 3, n, d)
+    assert got.shape == (b, h, n, d)
     assert float((got.float() - ref).abs().max()) < ATTN_TOL * float(ref.abs().max())
 
 
-def test_attention_kernel_reads_packed_qkv_in_place(gen):
-    b, n, h, d = 2, 320, 4, 64
+@pytest.mark.parametrize("b,n,h", [(2, 320, 4), (3, 1024, 20), (2, 4096, 10)])
+def test_attention_kernel_reads_packed_qkv_in_place(gen, b, n, h):
+    d = 64
     qkv = _randn(gen, b, n, 3 * h * d)
     q5 = qkv.view(b, n, 3, h, d).permute(0, 2, 3, 1, 4)
     got = block_attention_qkv_fused(q5, d**-0.5)
@@ -115,17 +128,34 @@ def _norm_tol(dtype):
     return 1e-5 if dtype == torch.float32 else 1e-2
 
 
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,c", [(1000, 640), (77, 1280), (5, 8), (3000, 768), (10, 5120)])
-def test_layer_norm_kernel_matches_plain(gen, rows, c, dtype):
+@pytest.mark.parametrize("rows,c", [(1000, 640), (77, 1280), (5, 8), (3000, 768), (10, 5120),
+                                    (333, 40), (13, 640), (3001, 1280), (77, 2048)])
+def test_layer_norm_kernel_matches_plain(gen, rows, c, dtype, param_dtype):
+    """Rows in registers up to C = 2048, the three-pass loop above; row
+    counts that are not multiples of the block's 8 rows."""
     x = (_randn(gen, rows, c, dtype=torch.float32) * 3 + 1).to(dtype)
-    s, b = _randn(gen, c, dtype=torch.float32) * 0.1 + 1, _randn(gen, c, dtype=torch.float32)
+    s = (_randn(gen, c, dtype=torch.float32) * 0.1 + 1).to(param_dtype)
+    b = _randn(gen, c, dtype=param_dtype)
     before = layer_norm_fused.launches
     got = layer_norm_fused(x, s, b)
     torch.cuda.synchronize()
     assert layer_norm_fused.launches == before + 1 and got.dtype == dtype
     ref = _ln_plain(x.float(), s, b, 1e-5)
     assert float((got.float() - ref).abs().max()) < _norm_tol(dtype) * float(ref.abs().max())
+
+
+def test_layer_norm_kernel_skips_autograd_without_grad(gen):
+    x = _randn(gen, 64, 640)
+    s, b = _randn(gen, 640), _randn(gen, 640)
+    want = layer_norm_fused(x, s, b)
+    with torch.inference_mode():
+        got = layer_norm_fused(x, s, b)
+    torch.cuda.synchronize()
+    assert got.grad_fn is None and torch.equal(got, want)
+    with pytest.raises(TypeError, match="both bf16 or both f32"):
+        layer_norm_fused(x, s, b.float())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -147,8 +177,9 @@ def test_group_norm_kernel_matches_plain(gen, n, hw, c, groups, act, dtype):
 
 
 def test_norm_kernels_take_bf16_scale_and_bias(gen):
-    """The models on the card pass bf16 scale and bias; the wrappers copy
-    both to f32 and must keep the two copies apart until the launch."""
+    """The models on the card pass bf16 scale and bias: the LayerNorm kernel
+    reads them as they are; the GroupNorm wrapper copies both to f32 and
+    must keep the two copies apart until the launch."""
     x = _randn(gen, 4, 256, 640)
     s = (_randn(gen, 640, dtype=torch.float32) * 0.1 + 1).to(torch.bfloat16)
     b = _randn(gen, 640)
@@ -200,7 +231,8 @@ def test_gradients_reach_inputs_through_the_kernels(gen):
 
 
 @pytest.mark.parametrize("n,m,h,kv_len", [(256, 256, 3, None), (200, 333, 2, 150),
-                                          (1024, 1024, 1, None)])
+                                          (1024, 1024, 1, None), (1024, 1024, 20, None),
+                                          (4096, 4096, 10, None), (64, 200, 5, 130)])
 def test_bnhd_kernel_matches_plain(gen, n, m, h, kv_len):
     d = 512 if h == 1 else 64
     q, k, v = _randn(gen, 2, n, h, d), _randn(gen, 2, m, h, d), _randn(gen, 2, m, h, d)

@@ -113,6 +113,66 @@ def test_norm_kernel_checks_reject_what_they_cannot_take():
         tnorms._check_input(torch.empty((16, 4), device="meta").t(), "group_norm")
 
 
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "inference_mode"])
+def test_layer_norm_grad_modes_agree_and_skip_autograd(mode):
+    """The same output with grad enabled, under no_grad and under
+    inference_mode; the last two build no graph (the wrapper skips its
+    autograd Function), and with grad enabled the gradient is still the
+    closed form of JAX ``_ln_bwd``."""
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=(3, 7, 64)) * 2 + 0.5).astype(np.float32)
+    scale, bias = _affine(rng, 64)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    want, grads_j = _grads_jax(lambda a, s, b: jnorms.layer_norm_fused(a, s, b, 1e-5),
+                               x, scale, bias, g)
+    if mode == "grad":
+        got, grads_t = _grads_torch(lambda a, s, b: tnorms.layer_norm_fused(a, s, b, 1e-5),
+                                    x, scale, bias, g)
+        _assert_grads(grads_t, grads_j)
+    else:
+        leaves = [t(a).requires_grad_(True) for a in (x, scale, bias)]
+        ctx = torch.no_grad() if mode == "no_grad" else torch.inference_mode()
+        with ctx:
+            got = tnorms.layer_norm_fused(*leaves, 1e-5)
+        assert got.grad_fn is None and not got.requires_grad
+    assert max_err(got, want) < TOL
+
+
+def test_layer_norm_without_grad_inputs_builds_no_graph():
+    x, s, b = (torch.ones(4, 16), torch.ones(16), torch.zeros(16))
+    assert tnorms.layer_norm_fused(x, s, b).grad_fn is None
+    assert tnorms.layer_norm_fused(x, s.requires_grad_(True), b).grad_fn is not None
+
+
+@pytest.mark.parametrize("scale,bias,match", [
+    (((64,), "f32"), ((64,), "f32"), None),             # accepted
+    (((64,), "bf16"), ((64,), "bf16"), None),           # bf16 parameters, as they are
+    (((64,), "f16"), ((64,), "f16"), "both bf16 or both f32"),
+    (((64,), "f32"), ((64,), "bf16"), "both bf16 or both f32"),  # mixed
+    (((63,), "f32"), ((63,), "f32"), "shape"),
+    (((2, 32), "f32"), ((64,), "f32"), "shape"),
+    (("strided", "f32"), ((64,), "f32"), "contiguous"),
+])
+def test_layer_norm_param_checks(scale, bias, match):
+    """What the LayerNorm kernel reads scale and bias as: (C,) contiguous,
+    16-byte aligned, both bf16 or both f32 (checked on meta tensors, no
+    device needed)."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+
+    def make(spec):
+        shape, dtype = spec
+        if shape == "strided":
+            return torch.empty((128,), dtype=dt[dtype], device="meta")[::2]
+        return torch.empty(shape, dtype=dt[dtype], device="meta")
+
+    x = torch.empty((4, 64), dtype=torch.bfloat16, device="meta")
+    if match is None:
+        tnorms._check_params(x, make(scale), make(bias), "layer_norm")
+    else:
+        with pytest.raises((TypeError, ValueError), match=match):
+            tnorms._check_params(x, make(scale), make(bias), "layer_norm")
+
+
 @pytest.mark.parametrize("fn", ["layer_norm", "group_norm", "group_norm_silu"])
 def test_model_norms_on_cpu_match_jax_nn(fn):
     rng = np.random.default_rng(len(fn))
