@@ -6,9 +6,10 @@
 Phases:
   1. build every kernel under custom_diffusion360_torch/csrc with nvcc
      (one process per source, all started together); print ptxas's
-     registers, shared memory and spills, and count the wgmma (HGMMA) and
-     TMA (UTMALDG) instructions in the d = 64 attention kernel's SASS
-     (cuobjdump), which must both be there;
+     registers, shared memory and spills (every ptxas line of the wgmma +
+     TMA kernels), and count the wgmma (HGMMA) and TMA (UTMALDG)
+     instructions in the SASS (cuobjdump) of the d = 64 attention kernel
+     and of the 3x3 conv, which must both be there in each;
   2. hold each kernel against its plain PyTorch version (max-abs error vs a
      stated tolerance) and time kernel, plain version and the one-call
      PyTorch yardstick (SDPA, F.grid_sample and its backward, F.layer_norm,
@@ -17,10 +18,10 @@ Phases:
      (kernel, shape) that the main paths below launched, attention in the
      layout it was launched in (packed to_qkv view, (b, n, h, d) views or
      contiguous (b, h, n, d): the sm90 kernel's TMA maps follow the
-     strides). Attention and LayerNorm rows also carry ``device_ms``: the
-     time per launch on the device alone, from a CUDA-graph replay of
-     GRAPH_CALLS calls (no host time between launches), and the same for
-     the library call (``library_device_ms``);
+     strides). Every row also carries ``device_ms``: the time per launch
+     on the device alone, from a CUDA-graph replay of GRAPH_CALLS calls (no
+     host time between launches), and the same for the library call
+     (``library_device_ms``);
   3. the sampling path: full-width SDXL, 12 FeatureNeRF pose blocks, 1024^2,
      batch 1, CFG x2 (vanilla_cfg_img_ref, scale 7.5), 8 reference views,
      50 Euler-EDM steps with the render cached after step 0, then
@@ -56,8 +57,10 @@ a row), as the main paths pay it; ``device_ms`` is the kernel's own.
 Every kernel must launch on a main path (the bilinear backward on the
 training path, conv3x3 and the bnhd route on the CLI path), and every shape
 a main path launched must have passed phase 2. Prints the card's name and
-power limit first, a JSON line per main path, the phase-2 rows of shapes no
-main path launched, a
+power limit first, a JSON line per main path, per kernel source and path
+the sums over the timed run's launches of device time, library device time
+and bound (``[sums]``, ``{"kernel_sums": ...}``), the phase-2 rows of
+shapes no main path launched, a
 ``{"kernels": [...]}`` line (one row per launched shape, with its launches
 in the timed runs), the card line again and, last, ``{"ok": true,
 "device": {...}}``. Any failed phase exits non-zero without the last line.
@@ -152,7 +155,9 @@ def bound(nbytes, flops, peak=H100_BF16_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-FULL_PTXAS_LOG = ("attention_sm90",)  # every ptxas line of these builds
+# the wgmma + TMA kernels: every ptxas line of their builds is printed, and
+# their SASS must hold HGMMA and UTMALDG
+WGMMA_KERNELS = ("attention_sm90", "conv3x3")
 SM90_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS", "MUFU.EX2")
 
 
@@ -314,12 +319,14 @@ def check_bilinear(torch, results, cases=BILINEAR_CASES):
         err = float((got.float() - ref).abs().max())
         tol = (BILINEAR_TOL if dtype == torch.bfloat16 else F32_TOL) * scale_ref
         ok = math.isfinite(err) and err <= tol
-        ms = time_ms(lambda: bilinear_sample(feats, grid))
+        run = lambda: bilinear_sample(feats, grid)  # noqa: E731
+        ms, dev_ms = time_ms(run), graph_ms(run)
         plain_ms = time_ms(lambda: grid_sample_2d(feats, grid), max_iters=5)
         nchw = feats.permute(0, 3, 1, 2)
         g4 = grid[:, :, None, :].to(feats.dtype)  # grid_sample wants one dtype
-        lib_ms = time_ms(lambda: F.grid_sample(nchw, g4, mode="bilinear",
-                                               padding_mode="zeros", align_corners=True))
+        lib = lambda: F.grid_sample(nchw, g4, mode="bilinear",  # noqa: E731
+                                    padding_mode="zeros", align_corners=True)
+        lib_ms, lib_dev_ms = time_ms(lib), graph_ms(lib)
         isz = feats.element_size()
         nbytes = mm * side * side * c_need * isz + grid.numel() * 4 + mm * p * c_need * isz
         bms, by = bound(nbytes, 8.0 * mm * p * c_need, H100_F32_FLOPS)
@@ -328,21 +335,22 @@ def check_bilinear(torch, results, cases=BILINEAR_CASES):
                  f"{dt}]",
             route="cuda", source="custom_diffusion360_torch/csrc/bilinear_sample.cu",
             replaces="custom_diffusion360_tpu/ops/onehot_sample.py:263",
-            max_abs_err=err, tol=tol, ms=ms,
+            max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            library_device_ms=lib_dev_ms, device_ms_from="CUDA-graph replay",
             ok=ok, _key=("bilinear", (mm, side, side, c, p, dt)),
         ))
         log(f"[kernels] bilinear {label}: err {err:.3e} (tol {tol:.3e}) "
-            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms grid_sample {lib_ms:.3f} ms "
-            f"bound {bms:.4f} ms ({by}) {'OK' if ok else 'FAIL'}")
+            f"kernel {ms:.4f} ms (device {dev_ms:.4f}) plain {plain_ms:.3f} ms grid_sample "
+            f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f}) bound {bms:.4f} ms ({by}; "
+            f"{bms / dev_ms:.1%} of it on the device) {'OK' if ok else 'FAIL'}")
         del feats, grid, got, ref
         torch.cuda.empty_cache()
 
 
 def _norm_params(torch, gen, c, dtype):
-    """Scale and bias in ``dtype``, as the models on the card pass them (the
-    LayerNorm kernel reads them as they are; the GroupNorm wrapper copies
-    them to f32)."""
+    """Scale and bias in ``dtype``, as the models on the card pass them (both
+    norm kernels read them as they are)."""
     scale = torch.randn((c,), generator=gen, device="cuda") * 0.1 + 1.0
     return scale.to(dtype), torch.randn((c,), generator=gen, device="cuda").to(dtype)
 
@@ -389,7 +397,9 @@ def check_layer_norm(torch, results, shapes):
 def check_group_norm(torch, results, shapes):
     """GroupNorm(+SiLU) kernel vs ``_gn_plain`` at (N, HW, C, G, act,
     dtype); yardstick F.group_norm (+ F.silu) on the channels-last view.
-    Inputs N(20, 0.5^2): a one-pass E[x^2] - E[x]^2 would lose the variance."""
+    Inputs N(20, 0.5^2): a one-pass E[x^2] - E[x]^2 would lose the variance.
+    Timed as the sampling paths call it, under inference mode (no autograd
+    Function)."""
     import torch.nn.functional as F
 
     from custom_diffusion360_torch.ops.norms import _gn_plain, group_norm_fused
@@ -406,20 +416,22 @@ def check_group_norm(torch, results, shapes):
             ref.abs().max())
         del got, ref
         budget = budget_ms(x.numel())
-        ms = time_ms(lambda: group_norm_fused(x, s, b, g, 1e-6, act), budget_ms=budget)
-        plain_ms = time_ms(lambda: _gn_plain(x, s, b, g, 1e-6, act), budget_ms=budget,
-                           max_iters=5)
+        run = lambda: group_norm_fused(x, s, b, g, 1e-6, act)  # noqa: E731
         xv = x.permute(0, 2, 1)  # (N, C, HW) view
         lib = (lambda: F.silu(F.group_norm(xv, g, s, b, 1e-6))) if act else (
             lambda: F.group_norm(xv, g, s, b, 1e-6))
-        lib_ms = time_ms(lib, budget_ms=budget)
+        with torch.inference_mode():
+            ms, dev_ms = time_ms(run, budget_ms=budget), graph_ms(run)
+            plain_ms = time_ms(lambda: _gn_plain(x, s, b, g, 1e-6, act), budget_ms=budget,
+                               max_iters=5)
+            lib_ms, lib_dev_ms = time_ms(lib, budget_ms=budget), graph_ms(lib)
         bms, by = bound(2 * x.numel() * x.element_size() + 2 * c * s.element_size(),
                         (14.0 if act else 10.0) * x.numel(), H100_F32_FLOPS)
         _row(results, f"group_norm_fused [N{n} HW{hw} C{c} G{g} act {act or 'none'} {dt}]",
              "custom_diffusion360_torch/csrc/group_norm.cu",
              "custom_diffusion360_tpu/ops/norms.py:209", err, tol, ms, plain_ms, bms, by, lib_ms,
              ("group_norm", (n, hw, c, g, act or "none", dt)),
-             "F.group_norm" + (" + F.silu" if act else ""))
+             "F.group_norm" + (" + F.silu" if act else ""), dev_ms, lib_dev_ms)
         del x
         torch.cuda.empty_cache()
 
@@ -449,23 +461,26 @@ def check_bilinear_bwd(torch, results, shapes):
         tol = (NORM_TOL_BF16 if dtype == torch.bfloat16 else F32_TOL) * float(ref.abs().max())
         err = float((got.float() - ref).abs().max())
         del got, ref
-        ms = time_ms(lambda: bilinear_sample_bwd(g, grid, fshape, dtype))
+        run = lambda: bilinear_sample_bwd(g, grid, fshape, dtype)  # noqa: E731
+        ms, dev_ms = time_ms(run), graph_ms(run)
         plain_ms = time_ms(lambda: bilinear_sample_bwd_plain(g, grid, fshape, dtype),
                            max_iters=5)
-        feats = torch.zeros((mm, c, h, w), device="cuda", dtype=dtype,
-                            requires_grad=True)
-        out = F.grid_sample(feats, grid[:, None].to(dtype), mode="bilinear",
-                            padding_mode="zeros", align_corners=True)  # (M, C, 1, P)
-        g4 = g.permute(0, 2, 1)[:, :, None, :]
-        lib_ms = time_ms(lambda: torch.autograd.grad(out, feats, g4, retain_graph=True))
+        feats = torch.zeros((mm, c, h, w), device="cuda", dtype=dtype)
+        g4 = g.permute(0, 2, 1)[:, :, None, :]  # (M, C, 1, P), the grid_sample output's
+        grid4 = grid[:, None].to(dtype)
+        # the backward of F.grid_sample with respect to its input, as one op
+        lib = lambda: torch.ops.aten.grid_sampler_2d_backward(  # noqa: E731
+            g4, feats, grid4, 0, 0, True, [True, False])
+        lib_ms, lib_dev_ms = time_ms(lib), graph_ms(lib)
         c_need, isz = needed_channels(c), g.element_size()
         nbytes = mm * p * c_need * isz + grid.numel() * 4 + mm * h * w * c_need * isz
         bms, by = bound(nbytes, 8.0 * mm * p * c_need, H100_F32_FLOPS)
         _row(results, f"bilinear_sample_bwd [M{mm} {h}x{w} C{c} (needed {c_need}) P{p} {dt}]",
              "custom_diffusion360_torch/csrc/bilinear_sample_bwd.cu",
              "custom_diffusion360_tpu/ops/onehot_sample.py:224", err, tol, ms, plain_ms, bms,
-             by, lib_ms, ("bilinear_bwd", (mm, h, w, c, p, dt)), "grid_sample backward")
-        del g, grid, feats, out, g4
+             by, lib_ms, ("bilinear_bwd", (mm, h, w, c, p, dt)), "grid_sample backward",
+             dev_ms, lib_dev_ms)
+        del g, grid, feats, g4, grid4
         torch.cuda.empty_cache()
 
 
@@ -491,17 +506,19 @@ def check_conv3x3(torch, results, shapes):
         ref = conv3x3_plain(x.float(), wt.float()) + bias.float()
         err, tol = float((got.float() - ref).abs().max()), CONV_TOL * float(ref.abs().max())
         del got, ref
-        ms = time_ms(lambda: conv3x3_fwd(x, wt, bias))
+        run = lambda: conv3x3_fwd(x, wt, bias)  # noqa: E731
+        ms, dev_ms = time_ms(run), graph_ms(run)
         plain_ms = time_ms(lambda: conv3x3_plain(x, wt) + bias, max_iters=5)
         xn = x.permute(0, 3, 1, 2)  # NCHW view of NHWC storage: channels-last
         wn = wt.contiguous(memory_format=torch.channels_last)
-        lib_ms = time_ms(lambda: F.conv2d(xn, wn, bias, padding=1))
+        lib = lambda: F.conv2d(xn, wn, bias, padding=1)  # noqa: E731
+        lib_ms, lib_dev_ms = time_ms(lib), graph_ms(lib)
         nbytes = 2 * (x.numel() + wt.numel() + n + b * h * w * n)
         bms, by = bound(nbytes, 2.0 * b * h * w * n * 9 * c)
         _row(results, f"conv3x3 [B{b} {h}x{w} C{c} N{n} bias bf16]",
              "custom_diffusion360_torch/csrc/conv3x3.cu",
              "custom_diffusion360_tpu/ops/conv3x3.py:119", err, tol, ms, plain_ms, bms, by,
-             lib_ms, ("conv3x3", (b, h, w, c, n)), "cuDNN F.conv2d")
+             lib_ms, ("conv3x3", (b, h, w, c, n)), "cuDNN F.conv2d", dev_ms, lib_dev_ms)
         del x, wt, bias
         torch.cuda.empty_cache()
 
@@ -562,6 +579,32 @@ def _row(results, name, source, replaces, err, tol, ms, plain_ms, bms, by, lib_m
     log(f"[kernels] {name}: err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain "
         f"{plain_ms:.4f} ms {lib_name} {lib_ms:.4f} ms;{device} bound {bms:.4f} ms ({by}) "
         f"{'OK' if ok else 'FAIL'}")
+
+
+def kernel_sums(results):
+    """Per kernel source and main path: the launches of the timed run and,
+    over them, the sums of the kernel's device time, the library call's
+    device time, the bound, and launches x (device time - bound), the
+    ROADMAP's ranking of what is left (ms)."""
+    sums = {}
+    for r in results:
+        src = r["source"].rsplit("/", 1)[-1]
+        for path, n in r["launches_by_path"].items():
+            if not n:
+                continue
+            s = sums.setdefault(src, {}).setdefault(path, dict(
+                launches=0, device_ms=0.0, library_device_ms=0.0, bound_ms=0.0))
+            s["launches"] += n
+            s["device_ms"] += n * r["device_ms"]
+            s["library_device_ms"] += n * r["library_device_ms"]
+            s["bound_ms"] += n * r["bound_ms"]
+    for src, per_path in sorted(sums.items()):
+        for path, s in sorted(per_path.items()):
+            s["excess_ms"] = s["device_ms"] - s["bound_ms"]
+            log(f"[sums] {src} on {path}: {s['launches']} launches, device {s['device_ms']:.3f} "
+                f"ms (library {s['library_device_ms']:.3f} ms, bound {s['bound_ms']:.3f} ms; "
+                f"launches x (device - bound) {s['excess_ms']:.3f} ms)")
+    return sums
 
 
 def check_launched(torch, results, launched):
@@ -782,7 +825,7 @@ KERNEL_GROUPS = (  # device kernels by name, first match wins
     ("bilinear bwd kernel", ("bilinear_bwd_kernel",)),
     ("bilinear kernel", ("bilinear_kernel",)),
     ("layer_norm kernel", ("layer_norm_kernel",)),
-    ("group_norm kernel", ("gn_partial_kernel", "gn_combine_kernel", "gn_apply_kernel")),
+    ("group_norm kernel", ("gn_stats_kernel", "gn_apply_kernel")),
     ("convolution", ("fprop", "conv", "implicit", "cudnn", "dgrad", "wgrad")),
     ("matmul f32 (no tensor cores)", ("gemm_f32f32", "sgemm")),
     ("matmul bf16", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")),
@@ -1319,15 +1362,16 @@ def main():
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
             if ("registers" in line or "spill" in line or "error" in line
-                    or (name in FULL_PTXAS_LOG and ("ptxas" in line or "arning" in line))):
+                    or (name in WGMMA_KERNELS and ("ptxas" in line or "arning" in line))):
                 log(f"[build] {name}: {line.strip()}")
-    counts = sass_counts("attention_sm90", SM90_OPCODES)
-    log(f"[build] attention_sm90 SASS (cuobjdump -sass): "
-        + ", ".join(f"{op} {n}" for op, n in counts.items()))
-    if not counts["HGMMA"] or not counts["UTMALDG"]:
-        print("chip_smoke: the d = 64 attention kernel has no wgmma (HGMMA) or no TMA load "
-              "(UTMALDG) in its SASS", file=sys.stderr)
-        return 1
+    for name in WGMMA_KERNELS:
+        counts = sass_counts(name, SM90_OPCODES)
+        log(f"[build] {name} SASS (cuobjdump -sass): "
+            + ", ".join(f"{op} {n}" for op, n in counts.items()))
+        if not counts["HGMMA"] or not counts["UTMALDG"]:
+            print(f"chip_smoke: {name} has no wgmma (HGMMA) or no TMA load (UTMALDG) in its "
+                  "SASS", file=sys.stderr)
+            return 1
 
     results = []
     check_attention(torch, results)
@@ -1374,6 +1418,7 @@ def main():
         r["launches"] = sum(per_path.values())
         r["launches_by_path"] = per_path
         r.pop("ok")
+    print(json.dumps({"kernel_sums": kernel_sums(results)}), flush=True)
     # shapes no main path launches (512^2 sampling, kv_len masking, the
     # unpadded scalar path) are checked and timed all the same
     print(json.dumps({"off_path_kernel_checks": [r for r in results if not r["launches"]]}),

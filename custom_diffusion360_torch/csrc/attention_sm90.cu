@@ -54,12 +54,10 @@
 // SM; setmaxnreg then gives the producer 40 and the consumers 232), no
 // spills, 16 barriers; 113 KB + 1 KB alignment slack of dynamic shared
 // memory (Q 16 KB, 3 stages of K and V 32 KB each). Its SASS holds 24 HGMMA
-// and 3 UTMALDG (cuobjdump -sass).
+// and 3 UTMALDG (cuobjdump -sass). The mbarrier, TMA and wgmma helpers are
+// shared with conv3x3.cu through sm90.cuh.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -78,77 +76,6 @@ constexpr int OFF_V = OFF_K + STAGES * TILE_KV;
 constexpr int OFF_BAR = OFF_V + STAGES * TILE_KV;
 constexpr int SMEM = 1024 + OFF_BAR + 8 * (1 + 2 * STAGES);  // 1 KB: alignment slack
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers -----------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// returns once the phase of parity `parity` has completed; traps (a launch
-// error the wrapper reports) instead of hanging if it never does
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t spins = 0; !done; ++spins) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (spins == (1u << 26)) __trap();
-  }
-}
-
-// ---- TMA -----------------------------------------------------------------
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int seq, int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(seq), "r"(head), "r"(batch)
-      : "memory");
-}
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int seq, int head,
-                                          int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(0), "r"(seq), "r"(head), "r"(batch)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// ---- wgmma ---------------------------------------------------------------
-// Shared-memory matrix descriptor of a tile written by TMA with the 128-byte
-// swizzle (1024-byte aligned atoms of 8 rows x 128 bytes): start address,
-// leading byte offset 16 (unused by these shapes), stride byte offset 1024
-// (the next 8 rows), layout type 1 = SWIZZLE_128B.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// returns once at most N committed wgmma groups are still in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // named barriers over both consumer warpgroups (256 threads): wait for
 // the other's arrival / arrive without waiting
 __device__ __forceinline__ void named_sync(int id) {
@@ -156,38 +83,6 @@ __device__ __forceinline__ void named_sync(int id) {
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// keeps the compiler from touching an accumulator across an async wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x 128, f32) = (accumulate ? d : 0) + A (64 x 16, K-major smem) B (16 x 128, K-major smem)
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
-                                                    int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d (64 x 64, f32) += A (64 x 16 bf16, registers) B (16 x 64, MN-major smem)
@@ -212,11 +107,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // S (64 x 128) = Q (64 rows at q_addr) K^T (128 keys at k_addr): 4 k-steps
@@ -327,13 +217,15 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, TILE_Q);
-      tma_load(s_base, &tm_q, bar_q, q0, head, batch);
+      tma_load_4d(s_base, &tm_q, bar_q, 0, q0, head, batch);
       for (int kt = 0; kt < n_tiles; ++kt) {
         const int s = kt % STAGES;
         mbar_wait(bar_empty + 8 * s, ((kt / STAGES) & 1) ^ 1);
         mbar_expect_tx(bar_full + 8 * s, 2 * TILE_KV);
-        tma_load(s_base + OFF_K + s * TILE_KV, &tm_k, bar_full + 8 * s, kt * BK, head, batch);
-        tma_load(s_base + OFF_V + s * TILE_KV, &tm_v, bar_full + 8 * s, kt * BK, head, batch);
+        tma_load_4d(s_base + OFF_K + s * TILE_KV, &tm_k, bar_full + 8 * s, 0, kt * BK, head,
+                    batch);
+        tma_load_4d(s_base + OFF_V + s * TILE_KV, &tm_v, bar_full + 8 * s, 0, kt * BK, head,
+                    batch);
       }
     }
   } else {
@@ -430,33 +322,8 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-    if (t == 0 && q0 + wg * 64 < N) tma_store(&tm_o, q_addr, q0 + wg * 64, head, batch);
+    if (t == 0 && q0 + wg * 64 < N) tma_store_4d(&tm_o, q_addr, 0, q0 + wg * 64, head, batch);
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found at run time: the library
-// links no -lcuda and builds with the other kernels' flags
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
 }
 
 // a 4-D map over (d = 64, seq, head, batch) with byte strides (seq, head,

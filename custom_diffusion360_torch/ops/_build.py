@@ -6,7 +6,8 @@ build takes seconds). Libraries are built at first use into ``_build/`` next
 to the package, named by a hash of the source, the local headers it
 includes (``#include "x.cuh"``) and the flags, so an edited source or header
 rebuilds and an unchanged one is reused. Nothing is built at import.
-``attention_sm90`` reaches the driver's ``cuTensorMapEncodeTiled`` through
+``attention_sm90`` and ``conv3x3`` (wgmma + TMA, their helpers in
+``csrc/sm90.cuh``) reach libcuda's ``cuTensorMapEncodeTiled`` through
 ``cudaGetDriverEntryPoint``, so no library links ``-lcuda``.
 """
 from __future__ import annotations
@@ -61,11 +62,11 @@ _SIGNATURES = {
     ),
     "group_norm": (
         "cd360_group_norm",
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     ),
     "conv3x3": (
         "cd360_conv3x3",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _P],
     ),
 }
 

@@ -10,13 +10,15 @@ the models on the card: ``csrc/layer_norm.cu`` and ``csrc/group_norm.cu``.
 tensors (or raise on what it does not take) and run the plain version
 (``_ln_plain`` / ``_gn_plain``, f32 statistics) for CPU tensors. Where a
 gradient is wanted they go through autograd Functions whose backward is the
-plain closed form, in f32, as the JAX package's ``_ln_bwd`` / ``_gn_bwd``;
-LayerNorm skips the Function when no gradient can flow (inference mode,
-``no_grad``, or no input that requires grad), since it runs some 200 times
-a UNet step and the host's time per launch is the step's time. The
-LayerNorm kernel reads bf16 or f32 scale and bias as they are; GroupNorm
-still copies them to f32. Launches are counted on ``layer_norm_fused`` /
-``group_norm_fused`` (``launches`` and ``launches_by_shape``).
+plain closed form (LayerNorm) or the VJP of the plain version (GroupNorm),
+in f32, as the JAX package's ``_ln_bwd`` / ``_gn_bwd``; both skip the
+Function when no gradient can flow (inference mode, ``no_grad``, or no
+input that requires grad), since they run hundreds of times a UNet step and
+the host's time per launch is the step's time. Both kernels read bf16 or
+f32 scale and bias as they are (no copies); the GroupNorm kernel makes two
+launches a call with one scratch tensor for its per-chunk statistics.
+Launches are counted on ``layer_norm_fused`` / ``group_norm_fused``
+(``launches`` and ``launches_by_shape``).
 """
 from __future__ import annotations
 
@@ -65,15 +67,8 @@ def _check_input(x, what):
         raise ValueError(f"{what} kernel needs a contiguous, 16-byte aligned input")
 
 
-def _f32(t, device):
-    """An f32 copy of a (bf16) scale or bias. The caller holds it until the
-    launch is queued: a temporary freed as soon as its data_ptr() is taken
-    hands its block to the next allocation (the other parameter's copy)."""
-    return t.to(device=device, dtype=torch.float32).contiguous()
-
-
 def _check_params(x, scale, bias, what):
-    """Scale and bias as the LayerNorm kernel reads them: (C,) contiguous,
+    """Scale and bias as the norm kernels read them: (C,) contiguous,
     16-byte aligned, both bf16 or both f32, on x's device."""
     c = x.shape[-1]
     for t, name in ((scale, "scale"), (bias, "bias")):
@@ -113,36 +108,49 @@ def _ln_forward(x, scale, bias, eps):
     return y
 
 
-def gn_chunks(n: int, hw: int) -> int:
-    """Row chunks per sample of the GroupNorm kernel's split reduction:
-    about two blocks per SM of an H100 over the whole batch."""
-    return max(1, min(hw, -(-264 // n)))
+def gn_chunks(n: int, hw: int, c: int, itemsize: int, groups: int) -> int:
+    """Row chunks per sample of the GroupNorm kernel's statistics launch:
+    about one block per SM of an H100 (132) over the whole batch, but no
+    chunk shorter than four rows for each of its threads (a block reads
+    max(1, 1024 // vectors a row) rows in parallel, 16 bytes a vector), and
+    at most 132 * 32 (chunk, group) partials a sample, which the apply
+    launch stages in shared memory."""
+    vectors = c * itemsize // 16
+    min_rows = 4 * max(1, 1024 // vectors)
+    return max(1, min(-(-132 // n), -(-hw // min_rows), 132 * 32 // groups))
+
+
+MAX_GROUPS = 256  # the apply launch merges with 256 / G threads a group
+_gn_kernel = None  # the loaded ctypes entry point, kept off the per-call path
 
 
 def _gn_forward(x, scale, bias, num_groups, eps, act):
+    global _gn_kernel
     if x.device.type == "cpu":
         return _gn_plain(x, scale, bias, num_groups, eps, act)
     _check_input(x, "group_norm")
+    _check_params(x, scale, bias, "group_norm")
     n, c = x.shape[0], x.shape[-1]
-    if c % num_groups:
-        raise ValueError(f"group_norm kernel needs {num_groups} groups to divide C = {c}")
+    if c % num_groups or num_groups > MAX_GROUPS:
+        raise ValueError(f"group_norm kernel needs at most {MAX_GROUPS} groups dividing C = {c}, "
+                         f"got {num_groups}")
+    if c * x.element_size() > 16 * 1024:
+        raise ValueError(f"group_norm kernel takes rows of at most 16 KB, got C = {c} "
+                         f"{x.dtype}")
     if act not in (None, "silu"):
         raise ValueError(f"group_norm kernel fuses act None or 'silu', got {act!r}")
     hw = x.numel() // (n * c)
-    chunks = gn_chunks(n, hw)
+    chunks = gn_chunks(n, hw, c, x.element_size(), num_groups)
     y = torch.empty_like(x)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    partial = torch.empty((n, chunks, num_groups), **f32)
-    mean = torch.empty((n, num_groups), **f32)
-    rstd = torch.empty((n, num_groups), **f32)
-    scale, bias = _f32(scale, x.device), _f32(bias, x.device)
-    fn = _build.load("group_norm")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                y.data_ptr(), partial.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                n, hw, c, num_groups, chunks, float(eps), int(act == "silu"),
-                _DTYPES[x.dtype], stream)
+    partial = torch.empty((n, chunks, num_groups, 2), dtype=torch.float32, device=x.device)
+    if _gn_kernel is None:
+        _gn_kernel = _build.load("group_norm")
+    index = x.get_device()
+    with _build.on_device(index):
+        rc = _gn_kernel(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                        partial.data_ptr(), n, hw, c, num_groups, chunks, float(eps),
+                        int(act == "silu"), _DTYPES[x.dtype], _DTYPES[scale.dtype],
+                        _build.current_stream(index))
     _build.check(rc, "group_norm_fused")
     group_norm_fused.launches += 1
     group_norm_fused.launches_by_shape[
@@ -216,8 +224,13 @@ def group_norm_fused(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,
                      act: Optional[str] = None):
     """Per-sample GroupNorm of channels-last x (N, ..., C) over (spatial,
     group channels) with f32 statistics, fused with SiLU when act="silu".
-    Output in x.dtype."""
-    return _GroupNorm.apply(x, scale, bias, num_groups, eps, act)
+    x bf16 or f32 (C % 8 == 0 on the card); scale, bias: (C,), both bf16 or
+    both f32. Output in x.dtype. The autograd Function only when a gradient
+    can flow."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _GroupNorm.apply(x, scale, bias, num_groups, eps, act)
+    return _gn_forward(x, scale, bias, num_groups, eps, act)
 
 
 layer_norm_fused.launches = 0

@@ -3,7 +3,13 @@ implicit-GEMM Pallas kernel in interpret mode (as tests/test_ops.py runs
 it), its gradient, its shape gate and the CD360_VAE_CONV=pallas decode. On
 the CPU the port's wrapper runs its plain f32 version; tolerance 1e-4
 absolute (f32 on both sides, different summation order, outputs O(1)) for
-the conv and the decode, 1e-3 relative to the gradients' scale."""
+the conv and the decode, 1e-3 relative to the gradients' scale. The CUDA
+side's TMA map arguments and tap coordinates are held to hand-worked values,
+and its wrapper runs on meta tensors against a stand-in for the built
+library."""
+import contextlib
+from collections import Counter
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -129,3 +135,89 @@ def test_weight_relayout_of_inference_tensors():
         a = tconv.relaid_weight(w, torch.bfloat16)
         assert tconv.relaid_weight(w, torch.bfloat16) is a
         assert a.dtype == torch.bfloat16 and a.shape == (128, 3, 3, 128)
+
+
+# hand-worked: x (1, 128, 128, 512) -> 512 channels, the decoder's bottleneck
+# convs (256 output channels a tile), and x (1, 1024, 1024, 256) -> 128, its
+# last level's first conv (128 a tile). Dims innermost first, in elements;
+# strides in bytes of the outer dims; boxes of 64 channels x 16 x 8 pixels
+# (x), 64 x BN (weight, K-major (N, 9C)) and 64 channels x 16 x 4 pixels
+# (out: one consumer warpgroup's 64 rows).
+_MAPS = {
+    (1, 128, 128, 512, 512): (
+        (512, 128, 128, 1), (1024, 131072, 16777216), (64, 16, 8, 1),
+        (4608, 512), (9216,), (64, 256),
+        (512, 128, 128, 1), (1024, 131072, 16777216), (64, 16, 4, 1)),
+    (1, 1024, 1024, 256, 128): (
+        (256, 1024, 1024, 1), (512, 524288, 536870912), (64, 16, 8, 1),
+        (2304, 128), (4608,), (64, 128),
+        (128, 1024, 1024, 1), (256, 262144, 268435456), (64, 16, 4, 1)),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(_MAPS), ids=["128sq-512-512", "1024sq-256-128"])
+def test_conv3x3_map_args_match_hand_worked_values(shape):
+    assert tconv.conv3x3_map_args(*shape) == _MAPS[shape]
+
+
+@pytest.mark.parametrize("tap,chunk,c,b,y0,x0,n0,want", [
+    # top-left tile, first tap: the box starts one pixel above and left of
+    # the image (TMA zero-fills that row and column)
+    (0, 1, 512, 0, 0, 0, 256, ((64, -1, -1, 0), (64, 256))),
+    # the centre tap reads the tile itself; weight column 4 C + c0
+    (4, 3, 512, 0, 64, 32, 0, ((192, 32, 64, 0), (2240, 0))),
+    # bottom-right tile of a 128^2 image, last tap and chunk: one past the end
+    (8, 7, 512, 0, 120, 112, 256, ((448, 113, 121, 0), (4544, 256))),
+    # second image, right-middle tap of 256 input channels
+    (5, 2, 256, 1, 8, 16, 128, ((128, 17, 8, 1), (1408, 128))),
+])
+def test_conv3x3_tap_box_coordinates(tap, chunk, c, b, y0, x0, n0, want):
+    assert tconv.tap_box_coords(tap, chunk, c, b, y0, x0, n0) == want
+
+
+@pytest.mark.parametrize("shape", [(1, 12, 32, 128, 128), (1, 32, 24, 128, 128),
+                                   (1, 32, 32, 96, 128), (1, 32, 32, 128, 64),
+                                   (0, 32, 32, 128, 128)],
+                         ids=["h12", "w24", "c96", "n64", "b0"])
+def test_conv3x3_map_args_refuse_what_the_kernel_cannot_take(shape):
+    with pytest.raises(ValueError, match="conv3x3 kernel tiles"):
+        tconv.conv3x3_map_args(*shape)
+
+
+@pytest.fixture
+def stand_in_kernel(monkeypatch):
+    """``conv3x3_fwd``'s CUDA side on meta tensors, against a stand-in entry
+    point that records its arguments; the counters are put back after."""
+    calls = []
+    monkeypatch.setattr(tconv._build, "load",
+                        lambda name: lambda *args: calls.append((name, args)) or 0)
+    monkeypatch.setattr(tconv._build, "on_device", lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(tconv._build, "current_stream", lambda index: 7)
+    monkeypatch.setattr(tconv, "_kernel", None)
+    monkeypatch.setattr(tconv.conv3x3_fwd, "launches", 0)
+    monkeypatch.setattr(tconv.conv3x3_fwd, "launches_by_shape", Counter())
+    return calls
+
+
+@pytest.mark.parametrize("shape", sorted(_MAPS), ids=["128sq-512-512", "1024sq-256-128"])
+def test_conv3x3_wrapper_passes_the_maps(stand_in_kernel, shape):
+    b, h, w, c, n = shape
+    x = torch.empty((b, h, w, c), dtype=torch.bfloat16, device="meta")
+    wt = torch.empty((n, c, 3, 3), dtype=torch.bfloat16, device="meta")
+    bias = torch.empty((n,), dtype=torch.float32, device="meta")
+    out = tconv.conv3x3_fwd(x, wt, bias)
+    assert out.shape == (b, h, w, n) and out.dtype == torch.bfloat16
+    ((name, args),) = stand_in_kernel
+    assert name == "conv3x3" and args[-1] == 7
+    assert list(args[4]) == [v for part in _MAPS[shape] for v in part]
+    assert tconv.conv3x3_fwd.launches_by_shape == Counter({shape: 1})
+
+
+def test_conv3x3_wrapper_refuses_before_launching(stand_in_kernel):
+    x = torch.empty((1, 32, 32, 128), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="does not take"):
+        tconv.conv3x3_fwd(x, torch.empty((128, 64, 3, 3), device="meta"))
+    with pytest.raises(ValueError, match="bias of shape"):
+        tconv.conv3x3_fwd(x, torch.empty((128, 128, 3, 3), device="meta"),
+                          torch.empty((64,), device="meta"))
+    assert not stand_in_kernel

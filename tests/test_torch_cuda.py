@@ -12,12 +12,15 @@ Tolerances: attention, bf16 kernel (bf16 P in P.V and bf16 output) vs the
 f32 plain version on the same bf16 inputs, 1e-2 of max|ref| (one bf16
 rounding of the largest output is at most 2**-8 of it); bilinear, one bf16
 rounding of the output, 1e-2 relative to max|ref|. LayerNorm and
-GroupNorm(+SiLU): f32 input 1e-5 of max|ref| (f32 statistics in another
-summation order), bf16 input 1e-2 of max|ref| (one bf16 rounding of the
-output). Bilinear backward: f32 atomics in a run-dependent order, 1e-5 of
-max|ref| in f32, 1e-2 for a bf16 cotangent and result. conv3x3: bf16
+GroupNorm(+SiLU), with bf16 or f32 scale and bias read as they are: f32
+input 1e-5 of max|ref| (f32 statistics in another summation order), bf16
+input 1e-2 of max|ref| (one bf16 rounding of the output). Bilinear
+backward: f32 atomics in a run-dependent order, 1e-5 of max|ref| in f32,
+1e-2 for a bf16 cotangent and result. conv3x3: bf16
 operands, f32 accumulation in another order than the f32 plain version, one
-bf16 rounding of the output (bias added before it): 1e-2 of max|ref|.
+bf16 rounding of the output (bias added before it): 1e-2 of max|ref|. The
+conv runs ``csrc/conv3x3.cu`` (wgmma, TMA), GroupNorm ``csrc/group_norm.cu``
+in two launches.
 """
 import pytest
 import torch
@@ -158,16 +161,23 @@ def test_layer_norm_kernel_skips_autograd_without_grad(gen):
         layer_norm_fused(x, s, b.float())
 
 
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", [None, "silu"])
 @pytest.mark.parametrize("n,hw,c,groups", [
     (2, 4096, 320, 32), (1, 64 * 64, 1920, 32), (3, 7 * 5, 64, 32), (1, 512 * 512, 128, 32),
-    (4, 100, 48, 8),
+    (4, 100, 48, 8), (3, 1024, 1280, 32), (1, 3, 2560, 32), (2, 1000, 96, 3),
+    (1, 4096, 512, 256),
 ])
-def test_group_norm_kernel_matches_plain(gen, n, hw, c, groups, act, dtype):
-    # a large offset: the two-pass statistics must not lose the variance
+def test_group_norm_kernel_matches_plain(gen, n, hw, c, groups, act, dtype, param_dtype):
+    """bf16 and f32 scale and bias read as they are; one counted launch a
+    call; row counts that leave a short last chunk, fewer rows than one
+    pass, groups that straddle the 16-byte vectors, 256 groups (16 chunks:
+    the partials' cap)."""
+    # a large offset: the shifted statistics must not lose the variance
     x = (_randn(gen, n, hw, c, dtype=torch.float32) * 0.5 + 20.0).to(dtype)
-    s, b = _randn(gen, c, dtype=torch.float32) * 0.1 + 1, _randn(gen, c, dtype=torch.float32)
+    s = (_randn(gen, c, dtype=torch.float32) * 0.1 + 1).to(param_dtype)
+    b = _randn(gen, c, dtype=param_dtype)
     before = group_norm_fused.launches
     got = group_norm_fused(x, s, b, groups, 1e-6, act)
     torch.cuda.synchronize()
@@ -176,10 +186,29 @@ def test_group_norm_kernel_matches_plain(gen, n, hw, c, groups, act, dtype):
     assert float((got.float() - ref).abs().max()) < _norm_tol(dtype) * float(ref.abs().max())
 
 
+def test_group_norm_kernel_makes_two_launches_and_no_copies(gen):
+    """A call on the card allocates the output and one scratch tensor and
+    launches two kernels: no f32 copies of the bf16 scale and bias."""
+    x = _randn(gen, 2, 1024, 1280)
+    s, b = _randn(gen, 1280), _randn(gen, 1280)
+    with torch.inference_mode():
+        group_norm_fused(x, s, b, 32, 1e-6, "silu")  # loaded, warmed up
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            y = group_norm_fused(x, s, b, 32, 1e-6, "silu")
+            torch.cuda.synchronize()
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocs == 2
+    assert y.grad_fn is None
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2, kernels
+    assert any("gn_stats_kernel" in k for k in kernels), kernels
+    assert any("gn_apply_kernel" in k for k in kernels), kernels
+
+
 def test_norm_kernels_take_bf16_scale_and_bias(gen):
-    """The models on the card pass bf16 scale and bias: the LayerNorm kernel
-    reads them as they are; the GroupNorm wrapper copies both to f32 and
-    must keep the two copies apart until the launch."""
+    """The models on the card pass bf16 scale and bias: both kernels read
+    them as they are, and a wrong pair is refused before any launch."""
     x = _randn(gen, 4, 256, 640)
     s = (_randn(gen, 640, dtype=torch.float32) * 0.1 + 1).to(torch.bfloat16)
     b = _randn(gen, 640)
@@ -188,6 +217,8 @@ def test_norm_kernels_take_bf16_scale_and_bias(gen):
                       _gn_plain(x.float(), s, b, 32, 1e-6, "silu"))):
         torch.cuda.synchronize()
         assert float((got.float() - ref).abs().max()) < 1e-2 * float(ref.abs().max())
+    with pytest.raises(TypeError, match="both bf16 or both f32"):
+        group_norm_fused(x, s, b.float(), 32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -252,8 +283,13 @@ CONV_TOL = 1e-2  # of max|ref|
 @pytest.mark.parametrize("b,h,w,c,n,bias", [
     (1, 32, 32, 128, 128, False), (2, 64, 32, 512, 256, True), (1, 32, 64, 256, 128, True),
     (1, 64, 64, 128, 384, True),
+    (1, 128, 128, 512, 512, True),    # the decoder's bottleneck convs
+    (1, 1024, 1024, 128, 128, True),  # its last level
+    (3, 32, 32, 256, 256, True),      # every tile on a border, three images
 ])
 def test_conv3x3_kernel_matches_plain(gen, b, h, w, c, n, bias):
+    """Tiles of 16 x 8 pixels whose taps reach past every border (TMA's zero
+    fill), 128- and 256-channel output tiles, several images a launch."""
     x = _randn(gen, b, h, w, c)
     wt = (_randn(gen, n, c, 3, 3, dtype=torch.float32) * (9 * c) ** -0.5).to(torch.bfloat16)
     bb = _randn(gen, n) if bias else None
@@ -269,6 +305,9 @@ def test_conv3x3_kernel_matches_plain(gen, b, h, w, c, n, bias):
     # the border rows and columns (zero padding in the kernel's halo)
     for edge in (err[:, 0], err[:, -1], err[:, :, 0], err[:, :, -1]):
         assert float(edge.max()) <= CONV_TOL * float(ref.abs().max())
+    # and per image (a tile's halo must not reach into the next image)
+    for i in range(b):
+        assert float(err[i].max()) <= CONV_TOL * float(ref[i].abs().max())
 
 
 def test_conv3x3_weight_relayout_is_reused_across_calls(gen):

@@ -3,11 +3,15 @@ in float32: the wrappers' plain versions (forward and gradients) against
 ``ops/norms.layer_norm_fused`` / ``group_norm_fused`` with their Pallas
 kernels in interpret mode (C % 128 == 0) or their XLA path (odd C), the
 models' ``nn.layer_norm`` / ``group_norm[_silu]`` against ``models/nn``, and
-``trunc_exp``'s clipped gradient.
+``trunc_exp``'s clipped gradient. The CUDA wrappers' checks and launch
+arguments run on meta tensors against a stand-in for the built library.
 
 Tolerances: 2e-5 absolute on unit-scale outputs (f32 on both sides,
 different summation order); gradients 1e-5 of max|g|.
 """
+import contextlib
+from collections import Counter
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -144,6 +148,58 @@ def test_layer_norm_without_grad_inputs_builds_no_graph():
     assert tnorms.layer_norm_fused(x, s.requires_grad_(True), b).grad_fn is not None
 
 
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "inference_mode"])
+def test_group_norm_grad_modes_agree_and_skip_autograd(mode):
+    """As the LayerNorm test: the same output in all three modes, no graph
+    under no_grad and inference_mode, and with grad enabled the gradients of
+    JAX ``group_norm_fused`` (the VJP of its plain version)."""
+    rng = np.random.default_rng(12)
+    x = (rng.normal(size=(2, 8, 8, 256)) * 3 - 1.0).astype(np.float32)
+    scale, bias = _affine(rng, 256)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    want, grads_j = _grads_jax(
+        lambda a, s, b: jnorms.group_norm_fused(a, s, b, 32, 1e-6, "silu"), x, scale, bias, g)
+    if mode == "grad":
+        got, grads_t = _grads_torch(
+            lambda a, s, b: tnorms.group_norm_fused(a, s, b, 32, 1e-6, "silu"), x, scale, bias, g)
+        _assert_grads(grads_t, grads_j)
+    else:
+        leaves = [t(a).requires_grad_(True) for a in (x, scale, bias)]
+        ctx = torch.no_grad() if mode == "no_grad" else torch.inference_mode()
+        with ctx:
+            got = tnorms.group_norm_fused(*leaves, 32, 1e-6, "silu")
+        assert got.grad_fn is None and not got.requires_grad
+    assert max_err(got, want) < TOL
+
+
+def test_group_norm_without_grad_inputs_builds_no_graph():
+    x, s, b = (torch.ones(2, 4, 64), torch.ones(64), torch.zeros(64))
+    assert tnorms.group_norm_fused(x, s, b, 32).grad_fn is None
+    assert tnorms.group_norm_fused(x, s, b.requires_grad_(True), 32).grad_fn is not None
+
+
+@pytest.fixture
+def stand_in_kernels(monkeypatch):
+    """The norm wrappers' CUDA side on meta tensors: ``_build.load`` returns
+    a stand-in entry point that records its arguments and reports success;
+    the launch counters start empty and are put back afterwards."""
+    calls = []
+
+    def load(name):
+        return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(tnorms._build, "load", load)
+    monkeypatch.setattr(tnorms._build, "on_device", lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(tnorms._build, "current_stream", lambda index: 7)
+    for name in ("_ln_kernel", "_gn_kernel"):
+        monkeypatch.setattr(tnorms, name, None)
+    for fn in (tnorms.layer_norm_fused, tnorms.group_norm_fused):
+        monkeypatch.setattr(fn, "launches", 0)
+        monkeypatch.setattr(fn, "launches_by_shape", Counter())
+    return calls
+
+
+@pytest.mark.parametrize("norm", ["layer_norm", "group_norm"])
 @pytest.mark.parametrize("scale,bias,match", [
     (((64,), "f32"), ((64,), "f32"), None),             # accepted
     (((64,), "bf16"), ((64,), "bf16"), None),           # bf16 parameters, as they are
@@ -153,10 +209,12 @@ def test_layer_norm_without_grad_inputs_builds_no_graph():
     (((2, 32), "f32"), ((64,), "f32"), "shape"),
     (("strided", "f32"), ((64,), "f32"), "contiguous"),
 ])
-def test_layer_norm_param_checks(scale, bias, match):
-    """What the LayerNorm kernel reads scale and bias as: (C,) contiguous,
-    16-byte aligned, both bf16 or both f32 (checked on meta tensors, no
-    device needed)."""
+def test_layer_norm_param_checks(stand_in_kernels, scale, bias, match, norm):
+    """What both norm kernels read scale and bias as: (C,) contiguous,
+    16-byte aligned, both bf16 or both f32. Through the wrappers on meta
+    tensors: a refused pair raises before any launch, an accepted one
+    reaches the entry point with its dtype code (0 bf16, 1 f32) and no
+    copy."""
     dt = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 
     def make(spec):
@@ -166,11 +224,57 @@ def test_layer_norm_param_checks(scale, bias, match):
         return torch.empty(shape, dtype=dt[dtype], device="meta")
 
     x = torch.empty((4, 64), dtype=torch.bfloat16, device="meta")
+    s, b = make(scale), make(bias)
+    run = {"layer_norm": lambda: tnorms.layer_norm_fused(x, s, b),
+           "group_norm": lambda: tnorms.group_norm_fused(x, s, b, 32)}[norm]
     if match is None:
-        tnorms._check_params(x, make(scale), make(bias), "layer_norm")
+        run()
+        ((name, args),) = stand_in_kernels
+        assert name == norm and args[1:3] == (s.data_ptr(), b.data_ptr())
+        assert args[-2] == {"f32": 1, "bf16": 0}[scale[1]] and args[-1] == 7
     else:
         with pytest.raises((TypeError, ValueError), match=match):
-            tnorms._check_params(x, make(scale), make(bias), "layer_norm")
+            run()
+        assert not stand_in_kernels
+
+
+@pytest.mark.parametrize("shape,groups,act,chunks", [
+    ((1, 1024, 1024, 128), 32, "silu", 132),  # the VAE at 1024^2: one chunk per SM
+    ((1, 128, 128, 128), 32, "silu", 64),     # 256-row chunks (64 rows in parallel x 4)
+    ((3, 1024, 1280), 32, None, 43),          # the x3 UNet batch: 24-row chunks
+    ((2, 5, 40), 8, "silu", 1),               # fewer rows than one pass
+    ((1, 4096, 512), 256, None, 16),          # 132 * 32 partials at most
+])
+def test_group_norm_wrapper_launch_arguments(stand_in_kernels, shape, groups, act, chunks):
+    """One launch of the entry point a call with (x, scale, bias, y,
+    partial, N, HW, C, G, chunks, eps, act, dtype, param dtype, stream),
+    chunks from ``gn_chunks`` (hand-worked here), and the launch counted by
+    shape."""
+    x = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    c = shape[-1]
+    s, b = (torch.empty((c,), dtype=torch.float32, device="meta") for _ in range(2))
+    y = tnorms.group_norm_fused(x, s, b, groups, 1e-6, act)
+    assert y.shape == x.shape and y.dtype == x.dtype
+    ((name, args),) = stand_in_kernels
+    hw = x.numel() // (shape[0] * c)
+    assert name == "group_norm" and tnorms.gn_chunks(shape[0], hw, c, 2, groups) == chunks
+    assert args[5:] == (shape[0], hw, c, groups, chunks, 1e-6, int(act == "silu"), 0, 1, 7)
+    assert tnorms.group_norm_fused.launches == 1
+    assert tnorms.group_norm_fused.launches_by_shape == Counter(
+        {(shape[0], hw, c, groups, act or "none", "bf16"): 1})
+
+
+@pytest.mark.parametrize("c,groups,act,match", [
+    (64, 3, None, "groups dividing"), (512, 512, None, "at most 256 groups"),
+    (16384, 32, None, "at most 16 KB"), (64, 32, "gelu", "act"),
+])
+def test_group_norm_wrapper_refuses_what_the_kernel_cannot_take(stand_in_kernels, c, groups,
+                                                                act, match):
+    x = torch.empty((2, 4, c), dtype=torch.bfloat16, device="meta")
+    s, b = (torch.empty((c,), dtype=torch.bfloat16, device="meta") for _ in range(2))
+    with pytest.raises(ValueError, match=match):
+        tnorms.group_norm_fused(x, s, b, groups, 1e-6, act)
+    assert not stand_in_kernels
 
 
 @pytest.mark.parametrize("fn", ["layer_norm", "group_norm", "group_norm_silu"])
