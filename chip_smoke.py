@@ -8,8 +8,9 @@ Phases:
      (one process per source, all started together); print ptxas's
      registers, shared memory and spills (every ptxas line of the wgmma +
      TMA kernels), and count the wgmma (HGMMA) and TMA (UTMALDG)
-     instructions in the SASS (cuobjdump) of the d = 64 attention kernel
-     and of the 3x3 conv, which must both be there in each;
+     instructions in the SASS (cuobjdump) of the d = 64 and d = 512
+     attention kernels and of the 3x3 conv, which must both be there in
+     each, and which must not spill registers;
   2. hold each kernel against its plain PyTorch version (max-abs error vs a
      stated tolerance) and time kernel, plain version and the one-call
      PyTorch yardstick (SDPA, F.grid_sample and its backward, F.layer_norm,
@@ -71,6 +72,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -157,7 +159,7 @@ def bound(nbytes, flops, peak=H100_BF16_FLOPS):
 
 # the wgmma + TMA kernels: every ptxas line of their builds is printed, and
 # their SASS must hold HGMMA and UTMALDG
-WGMMA_KERNELS = ("attention_sm90", "conv3x3")
+WGMMA_KERNELS = ("attention_sm90", "attention512_sm90", "conv3x3")
 SM90_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS", "MUFU.EX2")
 
 
@@ -190,9 +192,21 @@ ATTN_CASES = [
      "custom_diffusion360_tpu/ops/block_attention.py:123"),
     ("VAE mid-block d512", 1, 1, 16384, 16384, 512, None, "bhnd",
      "custom_diffusion360_tpu/ops/attention.py:149"),
+    # d = 512 at the training encoder's shapes: b = 1 splits the keys in two
+    # on 132 SMs (ops/block_attention.split_count), b = 4 does not
+    ("train VAE encoder d512", 1, 1, 4096, 4096, 512, None, "bhnd",
+     "custom_diffusion360_tpu/ops/block_attention.py:123"),
+    ("train VAE encoder refs d512", 4, 1, 4096, 4096, 512, None, "bhnd",
+     "custom_diffusion360_tpu/ops/block_attention.py:123"),
+    # kv_len inside the first split: the second has no live key (weight 0)
+    ("kv_len-masked d512, split 2 empty", 1, 1, 4096, 4096, 512, 1500, "bhnd",
+     "custom_diffusion360_tpu/ops/block_attention.py:123"),
+    # (b, n, h, d) views with two heads: 1024-byte head steps inside a row
+    ("d512 bnhd h2", 2, 2, 1024, 1024, 512, None, "bnhd",
+     "custom_diffusion360_tpu/ops/block_attention.py:218"),
 ]
 ATTN_SOURCES = {64: "custom_diffusion360_torch/csrc/attention_sm90.cu",
-                512: "custom_diffusion360_torch/csrc/attention.cu"}
+                512: "custom_diffusion360_torch/csrc/attention512_sm90.cu"}
 # bf16 kernel (bf16 P in P.V, bf16 output) vs the f32 plain version on the
 # same bf16 inputs: one bf16 rounding of the largest output is at most 2**-8
 # of max|ref|, the bf16 P adds about 2**-9 of an output
@@ -253,6 +267,7 @@ def check_attention(torch, results, cases=ATTN_CASES):
         block_attention,
         block_attention_qkv_fused,
         layout_of,
+        splits_launched,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -264,8 +279,10 @@ def check_attention(torch, results, cases=ATTN_CASES):
             run = lambda: block_attention_qkv_fused(q5, scale)  # noqa: E731
         else:
             run = lambda: block_attention(q, k, v, scale, kv_len)  # noqa: E731
+        splits_launched.clear()
         got = run()
         torch.cuda.synchronize()
+        splits = splits_launched[(b, h, n, m, d)]  # as the launch ran it
         ref = attention_plain(q.float(), k.float(), v.float(), scale, kv_len)
         err = float((got.float() - ref).abs().max())
         ref_max, ref_rms = float(ref.abs().max()), float(ref.square().mean().sqrt())
@@ -290,9 +307,10 @@ def check_attention(torch, results, cases=ATTN_CASES):
             max_abs_err=err, tol=tol, ref_rms=ref_rms, ms=ms, device_ms=dev_ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
             library_device_ms=lib_dev_ms, device_ms_from="CUDA-graph replay",
+            splits=splits,
             ok=ok, _key=("attention", (b, h, n, m, d, keys, layout)),
         ))
-        log(f"[kernels] attention {label} ({layout}): err {err:.3e} (tol {tol:.3e} = {ATTN_TOL} "
+        log(f"[kernels] attention {label} ({layout}, {splits} key split(s)): err {err:.3e} (tol {tol:.3e} = {ATTN_TOL} "
             f"x max|ref| {ref_max:.4f}; ref rms {ref_rms:.4f}) "
             f"kernel {ms:.4f} ms (device {dev_ms:.4f}) plain {plain_ms:.3f} ms sdpa "
             f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f}) bound {bms:.4f} ms ({by}; "
@@ -820,7 +838,7 @@ def run_main_path(torch, counters):
 TRACE_STEPS = (2, 4)  # sampler steps [2, 4) of a 4-step run, both cached
 KERNEL_GROUPS = (  # device kernels by name, first match wins
     ("attention d64 kernel (sm90)", ("attn_sm90_kernel",)),
-    ("attention d512 kernel", ("attn_fwd_kernel",)),
+    ("attention d512 kernel", ("attn512_kernel", "attn512_merge_kernel")),
     ("conv3x3 kernel", ("conv3x3_kernel",)),
     ("bilinear bwd kernel", ("bilinear_bwd_kernel",)),
     ("bilinear kernel", ("bilinear_kernel",)),
@@ -1371,6 +1389,11 @@ def main():
         if not counts["HGMMA"] or not counts["UTMALDG"]:
             print(f"chip_smoke: {name} has no wgmma (HGMMA) or no TMA load (UTMALDG) in its "
                   "SASS", file=sys.stderr)
+            return 1
+        spills = [line.strip() for line in _build.build_log(name).splitlines()
+                  if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+        if spills:
+            print(f"chip_smoke: {name} spills registers: {spills}", file=sys.stderr)
             return 1
 
     results = []

@@ -6,7 +6,7 @@
 // and the pose blocks' self-attention):
 //   ops/block_attention.py::block_attention_qkv_fused (pallas_call :275)
 //   ops/block_attention.py::block_attention            (pallas_call :123, :143)
-// (d = 512, the VAE bottleneck, stays in csrc/attention.cu.)
+// (d = 512, the VAE bottleneck, is csrc/attention512_sm90.cu.)
 //
 // out[b, h, i] = sum_j softmax_j(scale * q[b,h,i] . k[b,h,j]) v[b,h,j], keys
 // j >= kv_len masked out (weight exactly 0, as the TPU kernels' -1e30 logit).

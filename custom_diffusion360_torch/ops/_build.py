@@ -6,9 +6,10 @@ build takes seconds). Libraries are built at first use into ``_build/`` next
 to the package, named by a hash of the source, the local headers it
 includes (``#include "x.cuh"``) and the flags, so an edited source or header
 rebuilds and an unchanged one is reused. Nothing is built at import.
-``attention_sm90`` and ``conv3x3`` (wgmma + TMA, their helpers in
-``csrc/sm90.cuh``) reach libcuda's ``cuTensorMapEncodeTiled`` through
-``cudaGetDriverEntryPoint``, so no library links ``-lcuda``.
+``attention_sm90``, ``attention512_sm90`` and ``conv3x3`` (wgmma + TMA,
+their helpers in ``csrc/sm90.cuh``) reach libcuda's
+``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``, so no
+library links ``-lcuda``.
 """
 from __future__ import annotations
 
@@ -30,22 +31,22 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
-KERNELS = ("attention", "attention_sm90", "bilinear_sample", "bilinear_sample_bwd", "layer_norm",
-           "group_norm", "conv3x3")
+KERNELS = ("attention_sm90", "attention512_sm90", "bilinear_sample", "bilinear_sample_bwd",
+           "layer_norm", "group_norm", "conv3x3")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (argtypes, restype int = cudaError_t)
 _SIGNATURES = {
-    "attention": (
-        "cd360_attention_fwd",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-         ctypes.POINTER(ctypes.c_longlong), _P],
-    ),
     "attention_sm90": (
         "cd360_attention_sm90",
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
+         ctypes.POINTER(ctypes.c_longlong), _P],
+    ),
+    "attention512_sm90": (
+        "cd360_attention512",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
          ctypes.POINTER(ctypes.c_longlong), _P],
     ),
     "bilinear_sample": (

@@ -5,13 +5,16 @@ The TPU package has three Pallas attention kernels on the sampling path:
 ``block_attention_qkv_fused`` (packed (b, 3, h, n, d) operand), the
 whole-KV-resident ``block_attention`` and the library flash kernel for long
 KV. On Hopper two streaming kernels serve all three, by head dim: d = 64
-(every UNet and pose-block attention) goes to ``csrc/attention_sm90.cu``
-(wgmma, TMA, warp-specialised), d = 512 (the VAE bottleneck) to
-``csrc/attention.cu`` (mma.sync). Both read q/k/v in place through their
-strides, so the packed layout costs nothing, and both stream KV through
-shared memory, so the KV length is not limited. The sm90 kernel reads its
-operands through TMA maps built from the strides that ``tma_map_args``
-computes.
+(every UNet and pose-block attention) goes to ``csrc/attention_sm90.cu``,
+d = 512 (the VAE's one-head mid-block) to ``csrc/attention512_sm90.cu``.
+Both are wgmma + TMA kernels with a producer and two consumer warpgroups;
+both read q/k/v in place through TMA maps built from the strides that
+``tma_map_args`` computes, so the packed and (b, n, h, d) layouts cost
+nothing, and both stream KV through shared memory, so the KV length is not
+limited. The d = 512 kernel splits the keys
+across blocks when its grid would leave SMs idle (``split_count``), with a
+merge launch of the per-split partials (``attention_splitkv_plain`` is the
+same arithmetic in plain PyTorch).
 
 ``attention_fwd`` is the one wrapper that launches them: for CUDA tensors
 it launches the kernel (or raises on what the kernel does not take); for
@@ -40,8 +43,10 @@ import torch
 
 from . import _build
 
-KERNEL_HEAD_DIMS = (64, 512)
-SM90_HEAD_DIM = 64  # csrc/attention_sm90.cu; d = 512 runs csrc/attention.cu
+KERNEL_HEAD_DIMS = (64, 512)  # csrc/attention_sm90.cu, csrc/attention512_sm90.cu
+# csrc/attention512_sm90.cu's query rows per block and keys per K/V tile:
+# the key splits are runs of whole tiles
+D512_BQ, D512_BK = 64, 32
 
 
 def attention_plain(q, k, v, scale: float, kv_len: Optional[int] = None):
@@ -57,32 +62,67 @@ def attention_plain(q, k, v, scale: float, kv_len: Optional[int] = None):
     return torch.einsum("bhnm,bhmd->bhnd", p, vf).to(q.dtype)
 
 
-def _check_operand(t, name):
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"attention kernel takes bfloat16, got {name} {t.dtype}")
-    outer = [s for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1]
-    if t.stride(-1) != 1 or any(s % 8 for s in outer):
-        raise ValueError(
-            f"attention kernel needs {name} with a unit head-dim stride and "
-            f"other strides divisible by 8, got strides {t.stride()}"
-        )
-    if t.data_ptr() % 16:
-        raise ValueError(f"attention kernel needs {name} 16-byte aligned")
+def split_count(bh: int, n: int, m: int, num_sms: int) -> int:
+    """Key splits of the d = 512 kernel for bh = b * h heads of n queries
+    over m keys on a card of ``num_sms`` SMs: the largest s that keeps the
+    grid of ceil(n / 64) * bh * s blocks (one per SM) within one wave, at
+    least 1 and at most the 32-key tiles there are. 2 at (1, 1, 4096) on
+    132 SMs (128 blocks), 1 once the query tiles alone fill the card."""
+    blocks = -(-n // D512_BQ) * bh
+    return max(1, min(num_sms // blocks, -(-m // D512_BK)))
+
+
+def attention_splitkv_plain(q, k, v, scale: float, kv_len: Optional[int] = None,
+                            splits: int = 1):
+    """``attention_plain`` as the d = 512 kernel computes it with ``splits``
+    key splits, in f32: split s takes keys [s * c, (s + 1) * c), c =
+    32 * ceil(ceil(m / 32) / splits); each gives its unnormalised P V, row
+    max (of scale * q.k) and sum, keys >= kv_len weighted exactly 0, and the
+    merge weights split s by exp(max_s - max), a split with no live key by
+    exactly 0. q: (b, h, n, d); k, v: (b, h, m, d) -> (b, h, n, d) in
+    q.dtype. For tests: no path calls it."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    m = k.shape[2]
+    kv_len = m if kv_len is None else int(kv_len)
+    tiles = -(-m // D512_BK)
+    chunk = D512_BK * -(-tiles // splits)
+    parts = []
+    for start in range(0, m, chunk):
+        keys = torch.arange(start, min(start + chunk, m), device=q.device)
+        s = torch.einsum("bhnd,bhmd->bhnm", qf, kf[:, :, keys]) * scale
+        s = torch.where(keys < kv_len, s, torch.full_like(s, -torch.inf))
+        mx = s.amax(-1, keepdim=True)
+        p = torch.exp(s - torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx)))
+        parts.append((mx, p.sum(-1, keepdim=True),
+                      torch.einsum("bhnm,bhmd->bhnd", p, vf[:, :, keys])))
+    top = torch.stack([mx for mx, _, _ in parts]).amax(0)
+    out, total = torch.zeros_like(parts[0][2]), torch.zeros_like(top)
+    for mx, l, o in parts:
+        w = torch.where(l > 0, torch.exp(mx - top), torch.zeros_like(mx))
+        out, total = out + w * o, total + w * l
+    return (out / total).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def tma_map_args(q, k, v, out):
-    """What ``csrc/attention_sm90.cu`` encodes its four TMA maps from, for
-    (b, h, n, 64) q and out and (b, h, m, 64) k and v views of bf16 storage:
+    """What ``csrc/attention_sm90.cu`` (d = 64) and
+    ``csrc/attention512_sm90.cu`` (d = 512) encode their four TMA maps from,
+    for (b, h, n, d) q and out and (b, h, m, d) k and v views of bf16 storage:
     ``(offsets, strides)``, the byte offset of each operand's first element
     in its storage and its (seq, head, batch) byte strides, q, k, v, out in
     turn (12 strides). Each map is 4-D over (d, seq, head, batch); the C side
     encodes exactly these. A dim of extent 1 is never stepped, but TMA still
     wants a valid stride there: it gets the operand's whole span, rounded up
-    to 16 bytes. Raises on a non-bf16 operand, d != 64, a head-dim stride
-    other than 1, and an offset or stride that is not a multiple of 16
-    bytes (TMA's alignment). Memoized on the operands' dtypes, shapes,
-    strides and offsets: the main paths launch a few shapes thousands of
-    times, and the host's time per launch is the step's time."""
+    to 16 bytes. Raises on a non-bf16 operand, d not 64 or 512 or not the
+    same for all four, a head-dim stride other than 1, and an offset or
+    stride that is not a multiple of 16 bytes (TMA's alignment). Memoized
+    on the operands' dtypes, shapes, strides and offsets: the main paths
+    launch a few shapes thousands of times, and the host's time per launch
+    is the step's time."""
     return _tma_map_args(*((t.dtype, tuple(t.shape), t.stride(), t.storage_offset())
                            for t in (q, k, v, out)))
 
@@ -90,12 +130,13 @@ def tma_map_args(q, k, v, out):
 @functools.lru_cache(maxsize=1024)
 def _tma_map_args(*operands):
     offsets, strides = [], []
+    d = operands[0][1][-1]
     for (dtype, shape, stride, offset), name in zip(operands, ("q", "k", "v", "out")):
         if dtype != torch.bfloat16:
             raise TypeError(f"attention kernel takes bfloat16, got {name} {dtype}")
-        if len(shape) != 4 or shape[-1] != SM90_HEAD_DIM:
-            raise ValueError(f"the sm90 attention kernel is built for d = {SM90_HEAD_DIM}, "
-                             f"got {name} {shape}")
+        if len(shape) != 4 or shape[-1] not in KERNEL_HEAD_DIMS or shape[-1] != d:
+            raise ValueError(f"the attention kernels are built for d = 64 and d = 512 alike "
+                             f"for q, k, v and out, got {name} {shape}")
         if stride[-1] != 1:
             raise ValueError(f"attention kernel needs a unit head-dim stride, got {name} "
                              f"strides {stride}")
@@ -123,9 +164,10 @@ def _longlongs(values):
 
 def _launch(q, k, v, scale: float, kv_len: Optional[int]):
     """One launch of ``csrc/attention_sm90.cu`` (d = 64) or
-    ``csrc/attention.cu`` (d = 512) on CUDA (b, h, n, d) q and (b, h, m, d)
-    k, v -> (b, h, n, d) view of (b, n, h, d) storage; raises on what the
-    kernel does not take. Counts nothing."""
+    ``csrc/attention512_sm90.cu`` (d = 512; with its merge launch when the
+    keys are split) on CUDA (b, h, n, d) q and (b, h, m, d) k, v -> (b, h,
+    n, d) view of (b, n, h, d) storage; raises on what the kernel does not
+    take. Counts nothing; records its key splits in ``splits_launched``."""
     b, h, n, d = q.shape
     m = k.shape[2]
     if k.shape != (b, h, m, d) or v.shape != (b, h, m, d):
@@ -139,25 +181,34 @@ def _launch(q, k, v, scale: float, kv_len: Optional[int]):
     if not 0 < kv_len <= m:
         raise ValueError(f"kv_len {kv_len} outside (0, {m}]")
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    if d == SM90_HEAD_DIM:
-        _, strides = tma_map_args(q, k, v, out)  # checks dtype, strides and offsets
-        for t, name in ((q, "q"), (k, "k"), (v, "v")):
-            if t.data_ptr() % 16:
-                raise ValueError(f"attention kernel needs {name} 16-byte aligned")
-        name, args = "attention_sm90", (_longlongs(strides),)
-        call = (b, h, n, m, kv_len, float(scale))
+    _, strides = tma_map_args(q, k, v, out)  # checks dtype, d, strides and offsets
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"attention kernel needs {name} 16-byte aligned")
+    if d == 64:
+        splits = 1
+        name, call = "attention_sm90", (b, h, n, m, kv_len, float(scale))
     else:
-        for t, name in ((q, "q"), (k, "k"), (v, "v")):
-            _check_operand(t, name)
-        name, args = "attention", ((ctypes.c_longlong * 12)(
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]),)
-        call = (b, h, n, m, d, kv_len, float(scale))
+        splits = split_count(b * h, n, m, _num_sms(index))
+        workspace = (None, None)  # not read with one split
+        if splits > 1:  # per-split O and (max, sum), rows padded to whole query tiles
+            rows = -(-n // D512_BQ) * D512_BQ
+            ws = torch.empty((splits, b * h, rows, d), dtype=torch.float32, device=q.device)
+            ml = torch.empty((splits, b * h, rows, 2), dtype=torch.float32, device=q.device)
+            workspace = (ws.data_ptr(), ml.data_ptr())
+        name = "attention512_sm90"
+        call = (*workspace, b, h, n, m, kv_len, float(scale), splits)
     fn = _build.load(name)
     with _build.on_device(index):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *call, *args,
-                _build.current_stream(index))
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *call,
+                _longlongs(strides), _build.current_stream(index))
     _build.check(rc, name)
+    splits_launched[(b, h, n, m, d)] = splits
     return out
+
+
+# the key splits that the last launch at each (b, h, n, m, d) ran with
+splits_launched = {}
 
 
 def layout_of(q):
@@ -179,7 +230,7 @@ def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None):
     strides with a unit last stride -> (b, h, n, d).
 
     CUDA tensors launch ``csrc/attention_sm90.cu`` (d = 64) or
-    ``csrc/attention.cu`` (d = 512), bf16; the result is a (b, h, n, d) view
+    ``csrc/attention512_sm90.cu`` (d = 512), bf16; the result is a (b, h, n, d) view
     of (b, n, h, d) storage, so callers in the models' (b, n, h, d) layout
     transpose back for free. CPU tensors run ``attention_plain``. Launches
     are counted in ``attention_fwd.launches``, and by shape and q's layout

@@ -100,13 +100,15 @@ def test_auto_dispatch_on_cpu_is_plain_and_uncounted():
 
 
 def test_kernel_wrapper_rejects_what_it_cannot_take():
-    """The CUDA-side checks run before any launch: validate them on meta
-    tensors (no device needed)."""
+    """The CUDA-side checks run before any launch (``tma_map_args``, for
+    both kernels): validate them on meta tensors at d = 512 (no device
+    needed)."""
+    ok = torch.empty((1, 2, 8, 512), dtype=torch.bfloat16, device="meta")
     with pytest.raises(TypeError, match="bfloat16"):
-        tba._check_operand(torch.empty((1, 2, 8, 64), device="meta"), "q")
+        tba.tma_map_args(torch.empty((1, 2, 8, 512), device="meta"), ok, ok, ok)
     with pytest.raises(ValueError, match="stride"):
-        tba._check_operand(
-            torch.empty((1, 2, 8, 70), dtype=torch.bfloat16, device="meta")[..., :64], "q"
+        tba.tma_map_args(
+            torch.empty((1, 2, 8, 516), dtype=torch.bfloat16, device="meta")[..., :512], ok, ok, ok
         )
 
 
@@ -168,6 +170,79 @@ def test_tma_map_args_raise_on_what_tma_cannot_take(bad, exc, match):
     ok = _bf16(1, 2, 8, 64)
     with pytest.raises(exc, match=match):
         tba.tma_map_args(bad, ok, ok, ok)
+
+
+def _out512(b, n, h):
+    return _bf16(b, n, h, 512).transpose(1, 2)
+
+
+@pytest.mark.parametrize("operands,strides,layout", [
+    # contiguous (b, h, n, d), d = 512 (1024-byte rows): q (2, 3, 5), k/v
+    # (2, 3, 7); out a (b, h, n, d) view of (2, 5, 3, 512) storage
+    ((_bf16(2, 3, 5, 512), _bf16(2, 3, 7, 512), _bf16(2, 3, 7, 512), _out512(2, 5, 3)),
+     [1024, 5120, 15360] + [1024, 7168, 21504] * 2 + [3072, 1024, 15360], "bhnd"),
+    # (b, n, h, d) storage: q (2, 5, 3), k/v (2, 7, 3)
+    (tuple(x.transpose(1, 2) for x in (_bf16(2, 5, 3, 512), _bf16(2, 7, 3, 512),
+                                       _bf16(2, 7, 3, 512))) + (_out512(2, 5, 3),),
+     [3072, 1024, 15360] + [3072, 1024, 21504] * 2 + [3072, 1024, 15360], "bnhd"),
+    # the training encoder's (1, 1, 4096, 512): the unit dims get the span,
+    # 4096 rows of 1024 bytes
+    ((_bf16(1, 1, 4096, 512),) * 3 + (_out512(1, 4096, 1),), [1024, 4194304, 4194304] * 4,
+     "bhnd"),
+])
+def test_tma_map_args_at_d512_match_hand_worked_strides(operands, strides, layout):
+    assert tba.tma_map_args(*operands) == ((0, 0, 0, 0), tuple(strides))
+    assert tba.layout_of(operands[0]) == layout
+
+
+@pytest.mark.parametrize("bad,exc,match", [
+    (torch.zeros((1, 2, 8, 512)), TypeError, "bfloat16"),                     # f32
+    (_bf16(1, 2, 8, 64), ValueError, "d = 64 and d = 512 alike"),             # mixed head dims
+    (_bf16(1, 2, 8, 516)[..., :512], ValueError, "multiple of 16 bytes"),     # 1032-byte rows
+    (_bf16(1, 2, 8, 520)[..., 4:516], ValueError, "16-byte aligned"),         # 8-byte offset
+    (_bf16(1, 2, 512, 512).transpose(2, 3), ValueError, "unit head-dim"),
+])
+def test_tma_map_args_at_d512_raise_on_what_tma_cannot_take(bad, exc, match):
+    ok = _bf16(1, 2, 8, 512)
+    with pytest.raises(exc, match=match):
+        tba.tma_map_args(ok, bad, ok, ok)
+
+
+@pytest.mark.parametrize("bh,n,m,num_sms,want", [
+    (1, 4096, 4096, 132, 2),     # the training encoder: 64 query tiles -> 128 blocks
+    (4, 4096, 4096, 132, 1),     # its reference views: 256 blocks already
+    (1, 16384, 16384, 132, 1),   # the 1024^2 decoder's mid-block
+    (1, 64, 64, 132, 2),         # never more splits than 32-key tiles
+])
+def test_split_count_keeps_the_grid_within_one_wave(bh, n, m, num_sms, want):
+    assert tba.split_count(bh, n, m, num_sms) == want
+
+
+# ---------------------------------------------------------------------------
+# the d = 512 kernel's key splits and merge, in plain f32
+# (attention_splitkv_plain), against the JAX Pallas kernel in interpret mode
+# and the XLA reference; tolerance TOL (f32 on both sides)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,m,kv_len,splits", [
+    (160, 256, None, 1),
+    (160, 256, None, 2),
+    (100, 200, None, 3),   # ragged n and m: key runs of 96, 96 and 8
+    (160, 256, 100, 2),    # kv_len inside split 0: split 1 has no live key
+    (128, 256, 60, 3),     # splits 1 and 2 have no live key
+])
+def test_splitkv_plain_matches_jax_at_d512(n, m, kv_len, splits):
+    rng = np.random.default_rng(n + m + splits)
+    q, k, v = _qkv(rng, 1, 2, n, m, 512)
+    scale = 512**-0.5
+    got = tba.attention_splitkv_plain(t(q), t(k), t(v), scale, kv_len, splits)
+    assert got.shape == (1, 2, n, 512) and bool(torch.isfinite(got).all())
+    want = ba.block_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, kv_len, 128)
+    assert max_err(got, want) < TOL
+    if kv_len is None:
+        xla = jat._xla_attention(*(jnp.asarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v)), scale)
+        assert max_err(got, np.asarray(xla).transpose(0, 2, 1, 3)) < TOL
 
 
 def test_library_hash_covers_local_headers(tmp_path, monkeypatch):

@@ -6,7 +6,8 @@ the JAX package, so it runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Attention at d = 64 runs ``csrc/attention_sm90.cu`` (wgmma, TMA), at
-d = 512 ``csrc/attention.cu``.
+d = 512 ``csrc/attention512_sm90.cu`` (wgmma, TMA, keys split across blocks
+and merged by a second launch when the grid is under one wave).
 
 Tolerances: attention, bf16 kernel (bf16 P in P.V and bf16 output) vs the
 f32 plain version on the same bf16 inputs, 1e-2 of max|ref| (one bf16
@@ -32,6 +33,8 @@ from custom_diffusion360_torch.ops.block_attention import (
     block_attention,
     block_attention_bnhd,
     block_attention_qkv_fused,
+    split_count,
+    splits_launched,
 )
 from custom_diffusion360_torch.ops.conv3x3 import (
     conv3x3_fwd,
@@ -75,6 +78,11 @@ _SM90_LENGTHS = (64, 200, 256, 1024, 4096)
 _ATTN_CASES = [
     (2, 3, 256, 256, 64, None), (2, 3, 200, 333, 64, None), (2, 3, 130, 256, 64, 77),
     (2, 3, 100, 300, 512, None), (2, 3, 64, 96, 512, 50),
+    # d = 512 at the training encoder's shapes: b = 1 splits the keys in two
+    # (128 blocks), b = 4 does not; kv_len 1500 leaves the second split
+    # (keys 2048-4095) without a live key
+    (1, 1, 4096, 4096, 512, None), (4, 1, 4096, 4096, 512, None),
+    (1, 1, 4096, 4096, 512, 1500), (1, 1, 1000, 2000, 512, 1999),
     (3, 20, 1024, 1024, 64, None), (3, 20, 1024, 1024, 64, 777),  # b * h = 60
 ] + [(2, 3, n, m, 64, kv) for n in _SM90_LENGTHS for m in _SM90_LENGTHS
      for kv in (None, max(1, 3 * m // 4 - 5))]
@@ -87,6 +95,8 @@ def test_attention_kernel_matches_plain(gen, b, h, n, m, d, kv_len):
     got = block_attention(q, k, v, d**-0.5, kv_len)
     torch.cuda.synchronize()
     assert attention_fwd.launches == before + 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert splits_launched[(b, h, n, m, d)] == (split_count(b * h, n, m, sms) if d == 512 else 1)
     ref = attention_plain(q.float(), k.float(), v.float(), d**-0.5, kv_len)
     assert got.shape == (b, h, n, d)
     assert float((got.float() - ref).abs().max()) < ATTN_TOL * float(ref.abs().max())
@@ -274,6 +284,21 @@ def test_bnhd_kernel_matches_plain(gen, n, m, h, kv_len):
     assert got.shape == (2, n, h, d) and got.is_contiguous()
     ref = attention_plain(q.float().transpose(1, 2), k.float().transpose(1, 2),
                           v.float().transpose(1, 2), d**-0.5, kv_len).transpose(1, 2)
+    assert float((got.float() - ref).abs().max()) <= ATTN_TOL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("b,h,n,kv_len", [(2, 2, 1024, None), (1, 3, 700, 500), (1, 1, 4096, 1500)])
+def test_attention512_reads_bnhd_views(gen, b, h, n, kv_len):
+    """d = 512 on (b, n, h, d) storage: the TMA maps step heads 1024 bytes
+    apart inside a token row; the split path (ceil(n / 64) * b * h < SMs)
+    and a split with no live key included, no NaN."""
+    d = 512
+    q, k, v = (_randn(gen, b, n, h, d) for _ in range(3))
+    got = block_attention_bnhd(q, k, v, d**-0.5, kv_len)
+    torch.cuda.synchronize()
+    ref = attention_plain(q.float().transpose(1, 2), k.float().transpose(1, 2),
+                          v.float().transpose(1, 2), d**-0.5, kv_len).transpose(1, 2)
+    assert bool(torch.isfinite(got).all())
     assert float((got.float() - ref).abs().max()) <= ATTN_TOL * float(ref.abs().max())
 
 
