@@ -10,7 +10,8 @@ Phases:
      TMA kernels), and count the wgmma (HGMMA) and TMA (UTMALDG)
      instructions in the SASS (cuobjdump) of the d = 64 and d = 512
      attention kernels and of the 3x3 conv, which must both be there in
-     each, and which must not spill registers;
+     each, and which must not spill registers; the bilinear backward's
+     SASS must hold no global atomic or reduction (RED, ATOMG);
   2. hold each kernel against its plain PyTorch version (max-abs error vs a
      stated tolerance) and time kernel, plain version and the one-call
      PyTorch yardstick (SDPA, F.grid_sample and its backward, F.layer_norm,
@@ -19,7 +20,9 @@ Phases:
      (kernel, shape) that the main paths below launched, attention in the
      layout it was launched in (packed to_qkv view, (b, n, h, d) views or
      contiguous (b, h, n, d): the sm90 kernel's TMA maps follow the
-     strides). Every row also carries ``device_ms``: the time per launch
+     strides); the bilinear backward also on clustered points, and two of
+     its launches must agree bit for bit. Every row also carries
+     ``device_ms``: the time per launch
      on the device alone, from a CUDA-graph replay of GRAPH_CALLS calls (no
      host time between launches), and the same for the library call
      (``library_device_ms``);
@@ -123,17 +126,18 @@ def time_ms(fn, budget_ms=300.0, max_iters=50):
 GRAPH_CALLS = 20  # calls captured in one CUDA graph for device_ms
 
 
-def graph_ms(fn, calls=GRAPH_CALLS, replays=5):
+def graph_ms(fn, calls=GRAPH_CALLS, replays=5, stream=None):
     """Mean device time of ``fn()`` in ms, from replays of a CUDA graph that
     captured ``calls`` calls of it: the host's per-call cost is out of the
     timing. ``fn`` is called once first (outside the capture) so that any
-    one-time set-up has happened."""
+    one-time set-up has happened. ``stream``: the capture stream (a
+    backward runs on its forward's stream, so its forward ran there)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -161,6 +165,9 @@ def bound(nbytes, flops, peak=H100_BF16_FLOPS):
 # their SASS must hold HGMMA and UTMALDG
 WGMMA_KERNELS = ("attention_sm90", "attention512_sm90", "conv3x3")
 SM90_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS", "MUFU.EX2")
+# the bilinear backward owns its sums in shared memory: its SASS must hold
+# no global atomic or reduction (RED, ATOMG), and it loads g by TMA
+ATOMIC_OPCODES = ("RED", "ATOMG", "UTMALDG")
 
 
 def sass_counts(name, opcodes):
@@ -172,7 +179,9 @@ def sass_counts(name, opcodes):
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, timeout=120, check=True).stdout
     lines = sass.splitlines()
-    return {op: sum(op in line for line in lines) for op in opcodes}
+    # an opcode as a whole word: RED.E.ADD counts as RED, REDUX does not
+    return {op: sum(bool(re.search(rf"\b{re.escape(op)}\b", line)) for line in lines)
+            for op in opcodes}
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +231,8 @@ BILINEAR_CASES = [
 ]
 BILINEAR_TOL = 1e-2  # relative to max|ref|: one bf16 rounding of the output
 # f32 kernels vs their f32 plain versions: the same sums in another order
-# (and, for the bilinear backward, f32 atomics in a run-dependent order)
+# (the bilinear backward's order is fixed: per pixel in point order, then
+# the point splits in order)
 F32_TOL = 1e-5  # relative to max|ref|
 NORM_TOL_BF16 = 1e-2  # relative to max|ref|: one bf16 rounding of the output
 DT = {}  # torch dtype <-> "bf16" / "f32", filled in main()
@@ -454,31 +464,53 @@ def check_group_norm(torch, results, shapes):
         torch.cuda.empty_cache()
 
 
+def bwd_grid(torch, gen, mm, p, side, layout):
+    """Points of the backward cases: "uniform" in [-1.2, 1.2] with the first
+    64 on the corner (1, -1); "clustered", every point of each map within
+    3 x 3 pixels around its middle pixel, as projected ray samples crowd a
+    few pixels of a reference view (nine consumer warps of each block take
+    every point, each point's corners in four of them)."""
+    if layout == "uniform":
+        grid = torch.rand((mm, p, 2), generator=gen, device="cuda") * 2.4 - 1.2
+        grid[:, :64] = torch.tensor([1.0, -1.0], device="cuda")
+        return grid
+    pix = torch.rand((mm, p, 2), generator=gen, device="cuda") * 2 + (side // 2 - 1)
+    return pix / (side - 1) * 2 - 1
+
+
 def check_bilinear_bwd(torch, results, shapes):
     """W^T g kernel vs ``bilinear_sample_bwd_plain`` (autograd of the plain
-    sampling) at (M, H, W, C, P, dtype); yardstick the backward of
-    F.grid_sample with respect to its input (graph built once, outside the
-    timing)."""
+    sampling) at (M, H, W, C, P, dtype), on uniform and on clustered points;
+    two launches on the same inputs must agree bit for bit. Yardstick the
+    backward of F.grid_sample with respect to its input (graph built once,
+    outside the timing). The times cover the wrapper's launches: the kernel
+    and, when the points split (``bwd_plans_launched``), the merge."""
     import torch.nn.functional as F
 
     from custom_diffusion360_torch.ops.onehot_sample import (
         bilinear_sample_bwd,
         bilinear_sample_bwd_plain,
+        bwd_plans_launched,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for mm, h, w, c, p, dt in shapes:
+    for (mm, h, w, c, p, dt), layout in [(s, lay) for s in shapes
+                                         for lay in ("uniform", "clustered")]:
         dtype = DT[dt]
         g = torch.randn((mm, p, c), generator=gen, device="cuda").to(dtype)
-        grid = torch.rand((mm, p, 2), generator=gen, device="cuda") * 2.4 - 1.2
-        grid[:, :64] = torch.tensor([1.0, -1.0], device="cuda")
+        grid = bwd_grid(torch, gen, mm, p, h, layout)
         fshape = (mm, h, w, c)
         got = bilinear_sample_bwd(g, grid, fshape, dtype)
+        again = bilinear_sample_bwd(g, grid, fshape, dtype)
         torch.cuda.synchronize()
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        same = bool(torch.equal(got.view(bits), again.view(bits)))
         ref = bilinear_sample_bwd_plain(g.float(), grid, fshape, torch.float32)
         tol = (NORM_TOL_BF16 if dtype == torch.bfloat16 else F32_TOL) * float(ref.abs().max())
         err = float((got.float() - ref).abs().max())
-        del got, ref
+        if not same:
+            err = math.inf  # a launch that differs from the last one fails the row
+        del got, again, ref
         run = lambda: bilinear_sample_bwd(g, grid, fshape, dtype)  # noqa: E731
         ms, dev_ms = time_ms(run), graph_ms(run)
         plain_ms = time_ms(lambda: bilinear_sample_bwd_plain(g, grid, fshape, dtype),
@@ -493,11 +525,16 @@ def check_bilinear_bwd(torch, results, shapes):
         c_need, isz = needed_channels(c), g.element_size()
         nbytes = mm * p * c_need * isz + grid.numel() * 4 + mm * h * w * c_need * isz
         bms, by = bound(nbytes, 8.0 * mm * p * c_need, H100_F32_FLOPS)
-        _row(results, f"bilinear_sample_bwd [M{mm} {h}x{w} C{c} (needed {c_need}) P{p} {dt}]",
+        band_pix, splits = bwd_plans_launched[(mm, h, w, c, p, dt)]
+        key = ("bilinear_bwd" if layout == "uniform" else "bilinear_bwd_clustered",
+               (mm, h, w, c, p, dt))
+        _row(results, f"bilinear_sample_bwd [M{mm} {h}x{w} C{c} (needed {c_need}) P{p} {dt} "
+             f"{layout}; bands of {band_pix} px, {splits} split(s)]",
              "custom_diffusion360_torch/csrc/bilinear_sample_bwd.cu",
              "custom_diffusion360_tpu/ops/onehot_sample.py:224", err, tol, ms, plain_ms, bms,
-             by, lib_ms, ("bilinear_bwd", (mm, h, w, c, p, dt)), "grid_sample backward",
-             dev_ms, lib_dev_ms)
+             by, lib_ms, key, "grid_sample backward", dev_ms, lib_dev_ms)
+        results[-1]["bitwise_repeat"] = same
+        log(f"[kernels] bilinear_sample_bwd {layout}: two launches bitwise equal: {same}")
         del g, grid, feats, g4, grid4
         torch.cuda.empty_cache()
 
@@ -601,7 +638,9 @@ def _row(results, name, source, replaces, err, tol, ms, plain_ms, bms, by, lib_m
 
 def kernel_sums(results):
     """Per kernel source and main path: the launches of the timed run and,
-    over them, the sums of the kernel's device time, the library call's
+    over them, the sums of the kernel's device time (a wrapper call's
+    launches together: the bilinear backward's merge launch, the d = 512
+    attention's, GroupNorm's two), the library call's
     device time, the bound, and launches x (device time - bound), the
     ROADMAP's ranking of what is left (ms)."""
     sums = {}
@@ -651,10 +690,15 @@ def check_launched(torch, results, launched):
     log(f"[kernels] launched shapes checked in {time.time() - t0:.1f} s")
 
 
+ATTN_BWD_GRAPH_CALLS = 5  # the plain recompute holds (b, h, n, m) f32 scores a call
+
+
 def time_attention_backward(torch, shapes):
     """The attention backward runs as the plain f32 recompute
     (ops/block_attention.attention_bwd_plain); time it at the shapes that
-    take a gradient on the training path, beside SDPA's backward."""
+    take a gradient on the training path, beside SDPA's backward: host in
+    (events around calls in a row) and on the device alone (CUDA-graph
+    replay of ATTN_BWD_GRAPH_CALLS calls)."""
     import torch.nn.functional as F
 
     from custom_diffusion360_torch.ops.block_attention import attention_bwd_plain
@@ -664,13 +708,27 @@ def time_attention_backward(torch, shapes):
     for b, h, n, m, d in shapes:
         q, k, v, g = (torch.randn((b, h, x, d), generator=gen, device="cuda",
                                   dtype=torch.bfloat16) for x in (n, m, m, n))
-        plain_ms = time_ms(lambda: attention_bwd_plain(q, k, v, g, d**-0.5), max_iters=10)
-        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qs, ks, vs, scale=d**-0.5)
-        lib_ms = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), g, retain_graph=True))
-        rows.append(dict(shape=[b, h, n, m, d], plain_ms=plain_ms, sdpa_bwd_ms=lib_ms))
+        plain = lambda: attention_bwd_plain(q, k, v, g, d**-0.5)  # noqa: E731
+        plain_ms = time_ms(plain, max_iters=10)
+        plain_dev_ms = graph_ms(plain, calls=ATTN_BWD_GRAPH_CALLS)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # the backward's kernels run where its forward did
+            qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qs, ks, vs, scale=d**-0.5)
+        torch.cuda.synchronize()
+        lib = lambda: torch.autograd.grad(out, (qs, ks, vs), g,  # noqa: E731
+                                          retain_graph=True)
+        lib_ms = time_ms(lib)
+        lib_dev_ms = graph_ms(lib, calls=ATTN_BWD_GRAPH_CALLS, stream=side)
+        rows.append(dict(shape=[b, h, n, m, d], plain_ms=plain_ms, sdpa_bwd_ms=lib_ms,
+                         plain_device_ms=plain_dev_ms, sdpa_bwd_device_ms=lib_dev_ms))
         log(f"[attn-bwd] (b{b} h{h} n{n} m{m} d{d}): plain f32 recompute {plain_ms:.4f} ms, "
-            f"SDPA backward {lib_ms:.4f} ms")
+            f"SDPA backward {lib_ms:.4f} ms; device alone (CUDA-graph replay): plain "
+            f"{plain_dev_ms:.4f} ms, SDPA backward {lib_dev_ms:.4f} ms "
+            f"({plain_dev_ms / lib_dev_ms:.2f}x)")
+        del q, k, v, g, qs, ks, vs, out
+        torch.cuda.empty_cache()
     print(json.dumps({"attention_backward_plain": rows}), flush=True)
 
 
@@ -840,7 +898,7 @@ KERNEL_GROUPS = (  # device kernels by name, first match wins
     ("attention d64 kernel (sm90)", ("attn_sm90_kernel",)),
     ("attention d512 kernel", ("attn512_kernel", "attn512_merge_kernel")),
     ("conv3x3 kernel", ("conv3x3_kernel",)),
-    ("bilinear bwd kernel", ("bilinear_bwd_kernel",)),
+    ("bilinear bwd kernel", ("bilinear_bwd_kernel", "bilinear_bwd_merge_kernel")),
     ("bilinear kernel", ("bilinear_kernel",)),
     ("layer_norm kernel", ("layer_norm_kernel",)),
     ("group_norm kernel", ("gn_stats_kernel", "gn_apply_kernel")),
@@ -1395,6 +1453,14 @@ def main():
         if spills:
             print(f"chip_smoke: {name} spills registers: {spills}", file=sys.stderr)
             return 1
+
+    counts = sass_counts("bilinear_sample_bwd", ATOMIC_OPCODES)
+    log("[build] bilinear_sample_bwd SASS (cuobjdump -sass): "
+        + ", ".join(f"{op} {n}" for op, n in counts.items()))
+    if counts["RED"] or counts["ATOMG"] or not counts["UTMALDG"]:
+        print("chip_smoke: bilinear_sample_bwd has a global atomic or reduction (RED, ATOMG) "
+              "or no TMA load (UTMALDG) in its SASS", file=sys.stderr)
+        return 1
 
     results = []
     check_attention(torch, results)

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels
-// (attention_sm90.cu, attention512_sm90.cu, conv3x3.cu): shared-memory
+// (attention_sm90.cu, attention512_sm90.cu, conv3x3.cu) and the bilinear
+// backward (its mbarriers, TMA loads and map encoder): shared-memory
 // addresses, mbarriers with a bounded wait, 2-D and 4-D TMA loads and a 4-D
 // TMA store, 128-byte-swizzle wgmma descriptors, the wgmma fences, the
 // shared-memory wgmma shapes and the register-A n256 one, and

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -55,7 +56,7 @@ _SIGNATURES = {
     ),
     "bilinear_sample_bwd": (
         "cd360_bilinear_sample_bwd",
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
     "layer_norm": (
         "cd360_layer_norm",
@@ -176,6 +177,13 @@ def on_device(index: int):
     if index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(index)
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the kernels size
+    their splits to fill one wave of them."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def current_stream(index: int) -> int:

@@ -103,11 +103,6 @@ def attention_splitkv_plain(q, k, v, scale: float, kv_len: Optional[int] = None,
     return (out / total).to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def tma_map_args(q, k, v, out):
     """What ``csrc/attention_sm90.cu`` (d = 64) and
     ``csrc/attention512_sm90.cu`` (d = 512) encode their four TMA maps from,
@@ -189,7 +184,7 @@ def _launch(q, k, v, scale: float, kv_len: Optional[int]):
         splits = 1
         name, call = "attention_sm90", (b, h, n, m, kv_len, float(scale))
     else:
-        splits = split_count(b * h, n, m, _num_sms(index))
+        splits = split_count(b * h, n, m, _build.num_sms(index))
         workspace = (None, None)  # not read with one split
         if splits > 1:  # per-split O and (max, sum), rows padded to whole query tiles
             rows = -(-n // D512_BQ) * D512_BQ

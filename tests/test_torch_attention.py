@@ -172,6 +172,21 @@ def test_tma_map_args_raise_on_what_tma_cannot_take(bad, exc, match):
         tba.tma_map_args(bad, ok, ok, ok)
 
 
+def test_tma_map_args_keeps_no_operand():
+    """The map arguments are computed per launch and hold no reference to
+    the operands (a cache keyed by tensors would keep every attention
+    operand of a run alive)."""
+    import gc
+    import weakref
+
+    q = _bf16(1, 2, 8, 64)
+    ref = weakref.ref(q)
+    tba.tma_map_args(q, q, q, q)
+    del q
+    gc.collect()
+    assert ref() is None
+
+
 def _out512(b, n, h):
     return _bf16(b, n, h, 512).transpose(1, 2)
 

@@ -16,8 +16,10 @@ rounding of the output, 1e-2 relative to max|ref|. LayerNorm and
 GroupNorm(+SiLU), with bf16 or f32 scale and bias read as they are: f32
 input 1e-5 of max|ref| (f32 statistics in another summation order), bf16
 input 1e-2 of max|ref| (one bf16 rounding of the output). Bilinear
-backward: f32 atomics in a run-dependent order, 1e-5 of max|ref| in f32,
-1e-2 for a bf16 cotangent and result. conv3x3: bf16
+backward (``csrc/bilinear_sample_bwd.cu``: shared-memory ownership, no
+atomics, the same bits from run to run): f32 sums in another order than the
+plain version, 1e-5 of max|ref| in f32, 1e-2 for a bf16 cotangent and
+result. conv3x3: bf16
 operands, f32 accumulation in another order than the f32 plain version, one
 bf16 rounding of the output (bias added before it): 1e-2 of max|ref|. The
 conv runs ``csrc/conv3x3.cu`` (wgmma, TMA), GroupNorm ``csrc/group_norm.cu``
@@ -54,6 +56,7 @@ from custom_diffusion360_torch.ops.onehot_sample import (
     bilinear_sample,
     bilinear_sample_bwd,
     bilinear_sample_bwd_plain,
+    bwd_plans_launched,
 )
 
 pytestmark = pytest.mark.cuda
@@ -245,6 +248,87 @@ def test_bilinear_backward_kernel_matches_plain(gen, m, side, c, p, dtype):
     ref = bilinear_sample_bwd_plain(g.float(), grid, (m, side, side, c), torch.float32)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     assert float((got.float() - ref).abs().max()) < tol * float(ref.abs().max())
+
+
+def _bwd_check(g, grid, shape, dtype):
+    """One launch of the backward kernel against the f32 plain version."""
+    before = bilinear_sample_bwd.launches
+    got = bilinear_sample_bwd(g, grid, shape, dtype)
+    torch.cuda.synchronize()
+    assert bilinear_sample_bwd.launches == before + 1 and got.dtype == dtype
+    ref = bilinear_sample_bwd_plain(g.float(), grid, shape, torch.float32)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert float((got.float() - ref).abs().max()) <= tol * float(ref.abs().max())
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,side,c,p", [(4, 16, 1288, 6144), (4, 32, 648, 12288), (1, 8, 7, 500)])
+def test_bilinear_backward_clustered(gen, m, side, c, p, dtype):
+    """Every point of map 0 within 3 x 3 pixels: nine consumer warps of each
+    block take all of them, each keeping its pixel's running sum in a
+    register; the other maps get nothing."""
+    g = _randn(gen, m, p, c, dtype=dtype)
+    grid = torch.full((m, p, 2), 5.0, device="cuda")
+    grid[0] = (torch.rand((p, 2), generator=gen, device="cuda") * 2 + side // 2 - 1) / (
+        side - 1) * 2 - 1
+    _bwd_check(g, grid, (m, side, side, c), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c,p", [(4, 648, 12288), (1, 40, 3000)])
+def test_bilinear_backward_64x64_bands(gen, m, c, p, dtype):
+    """A 64^2 map is 4 bands of 1024 pixels, each walking every point."""
+    g = _randn(gen, m, p, c, dtype=dtype)
+    grid = torch.rand((m, p, 2), generator=gen, device="cuda") * 2.4 - 1.2
+    _bwd_check(g, grid, (m, 64, 64, c), dtype)
+    assert bwd_plans_launched[(m, 64, 64, c, p, "f32" if dtype == torch.float32 else "bf16")][
+        0] == 1024
+
+
+@pytest.mark.parametrize("c", [648, 7])
+def test_bilinear_backward_all_outside_is_zero(gen, c):
+    g = _randn(gen, 4, 2000, c, dtype=torch.float32)
+    # |x|, |y| >= 1.2: both corners of both axes lie outside the 16^2 map
+    grid = torch.rand((4, 2000, 2), generator=gen, device="cuda") * 2 + 1.2
+    grid[:, ::2] *= -1
+    got = bilinear_sample_bwd(g, grid, (4, 16, 16, c), torch.float32)
+    torch.cuda.synchronize()
+    assert float(got.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("m,side,c,p", [(4, 16, 1288, 6144), (4, 32, 648, 12288), (2, 8, 7, 500)])
+def test_bilinear_backward_is_bitwise_reproducible(gen, m, side, c, p):
+    """Two launches on the same inputs agree bit for bit (split or not)."""
+    g = _randn(gen, m, p, c, dtype=torch.float32)
+    grid = torch.rand((m, p, 2), generator=gen, device="cuda") * 2.4 - 1.2
+    grid[:, : p // 2] = grid[:, : p // 2] * 0.05  # collisions on the middle pixels
+    a = bilinear_sample_bwd(g, grid, (m, side, side, c), torch.float32)
+    b = bilinear_sample_bwd(g, grid, (m, side, side, c), torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,side,c,p", [(4, 16, 1288, 6144), (1, 64, 64, 100)])
+def test_bilinear_backward_writes_bf16_itself(gen, m, side, c, p, g_dtype):
+    """A bf16 result comes from the kernel's own flush (and the merge when
+    the points split): the wrapper launches nothing else, no zero fill and
+    no cast."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = _randn(gen, m, p, c, dtype=g_dtype)
+    grid = torch.rand((m, p, 2), generator=gen, device="cuda") * 2.4 - 1.2
+    _bwd_check(g, grid, (m, side, side, c), torch.bfloat16)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bilinear_sample_bwd(g, grid, (m, side, side, c), torch.bfloat16)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    splits = bwd_plans_launched[(m, side, side, c, p, "f32" if g_dtype == torch.float32
+                                 else "bf16")][1]
+    assert len(names) == (2 if splits > 1 else 1), names
+    assert any("bilinear_bwd_kernel" in n for n in names)
+    assert splits == 1 or any("bilinear_bwd_merge_kernel" in n for n in names)
 
 
 def test_gradients_reach_inputs_through_the_kernels(gen):
