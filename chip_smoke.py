@@ -49,17 +49,27 @@ Phases:
      through the (b, n, h, d) route). A 2-step warm-up, the timed run with
      the counters zeroed just before and read just after, then a 4-step run
      with two cached steps traced;
+  5b. the training CLI as users run it (custom_diffusion360_torch.cli.train
+     main(), in process) on a synthetic CO3D tree (40 frames of 820 x 760,
+     masks, bboxes, ring cameras, annotations): full-width SDXL in bf16,
+     random weights from --seed 23, 512^2, 1 + 4 views, 4 steps, EMA, a
+     step delta, a full checkpoint and a validation loss at step 2, then
+     the capture of the 20 valid frames and the delta export; then the
+     sampling CLI on that delta and cameras at 512^2 (the capture's token
+     grids), x3, 4 steps, both switches. Counters zeroed just before the
+     training call and read after the sample (path "train_cli");
   6. small configurations run twice, on the card through the kernels (bf16)
      and on the CPU through the plain versions (f32): a 3-step sample +
      decode, whose latent and image must agree, a 3-step x3 CLI sample
-     (--smoke, both switches on), whose images must agree, and one training
-     step, whose loss and trainable gradients must agree.
+     (--smoke, both switches on), whose images must agree, one training
+     step, whose loss and trainable gradients must agree, and a capture of
+     reference features, whose buffers must agree.
 
 ``ms`` is a call's time with the host in it (events around many calls in
 a row), as the main paths pay it; ``device_ms`` is the kernel's own.
 
 Every kernel must launch on a main path (the bilinear backward on the
-training path, conv3x3 and the bnhd route on the CLI path), and every shape
+training paths, conv3x3 and the bnhd route on the CLI path), and every shape
 a main path launched must have passed phase 2. Prints the card's name and
 power limit first, a JSON line per main path, per kernel source and path
 the sums over the timed run's launches of device time, library device time
@@ -1086,6 +1096,27 @@ CLI_SWITCHES = {"CD360_VAE_CONV": "pallas", "CD360_ATTN_BNHD": "1"}
 N_TRAIN_CAMS, N_VAL_CAMS = 20, 7
 
 
+def patch_init_params(torch, on_cpu):
+    """Wrap ``Engine.init_params`` so the random weights' zero-initialized
+    leaves are perturbed (``on_cpu``: made on the CPU in f32 first, so the
+    card and the CPU get the same weights); returns the original, which the
+    caller puts back."""
+    from custom_diffusion360_torch.engine import Engine
+
+    orig = Engine.init_params
+
+    def init_params(eng, seed=0, dtype=None):
+        dtype = eng.cfg.dtype if dtype is None else dtype
+        if on_cpu:
+            params = orig(Engine(eng.cfg, device="cpu"), seed, torch.float32)
+            params = perturb_zero_leaves(torch, params, seed + 100)
+            return _map(params, lambda x: x.to(eng.device, dtype))
+        return perturb_zero_leaves(torch, orig(eng, seed, dtype), seed + 100)
+
+    Engine.init_params = init_params
+    return orig
+
+
 class cli_setup:
     """Context for in-process runs of cli.sample.main: the env switches set
     (and restored after), ``Engine.init_params`` wrapped so the random
@@ -1104,7 +1135,6 @@ class cli_setup:
         import tempfile
 
         from custom_diffusion360_torch.cli.sample import ring_cameras
-        from custom_diffusion360_torch.engine import Engine
         from custom_diffusion360_torch.io.cameras_io import save_cameras_npz
         from custom_diffusion360_torch.io.delta import iter_pose_blocks, save_delta_npz
         from custom_diffusion360_torch.models.unet import attn_block_meta
@@ -1112,18 +1142,7 @@ class cli_setup:
         torch = self.torch
         self.saved_env = {k: os.environ.get(k) for k in CLI_SWITCHES}
         os.environ.update(CLI_SWITCHES)
-        self.orig_init = Engine.init_params
-        orig, on_cpu = self.orig_init, self.on_cpu
-
-        def init_params(eng, seed=0, dtype=None):
-            dtype = eng.cfg.dtype if dtype is None else dtype
-            if on_cpu:
-                params = orig(Engine(eng.cfg, device="cpu"), seed, torch.float32)
-                params = perturb_zero_leaves(torch, params, seed + 100)
-                return _map(params, lambda x: x.to(eng.device, dtype))
-            return perturb_zero_leaves(torch, orig(eng, seed, dtype), seed + 100)
-
-        Engine.init_params = init_params
+        self.orig_init = patch_init_params(torch, self.on_cpu)
         self.tmp = tempfile.TemporaryDirectory()
         d = self.tmp.name
         # drawn on the device when there is one (0.8 GiB of buffers at full width)
@@ -1234,6 +1253,198 @@ def run_cli_path(torch, counters, main_decode_ms):
 
         cli.main(setup.argv(*base, "--num_steps", str(TRACE_STEPS[1])), callback=trace_cb)
         report_trace(torch, prof, med, TRACE_STEPS[1] - TRACE_STEPS[0], "cached x3 step")
+    torch.cuda.empty_cache()
+    return launches, by_shape
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the training CLI at full width, feeding the sampling CLI
+# ---------------------------------------------------------------------------
+
+CO3D_FRAMES, CO3D_W, CO3D_H = 40, 820, 760  # a few hundred pixels past 512 each way
+TRAIN_CLI_STEPS, TRAIN_CLI_SEED = 4, 23
+
+
+def write_co3d_tree(root, n_frames=CO3D_FRAMES, width=CO3D_W, height=CO3D_H, seed=0):
+    """A CO3Dv2-shaped tree (the layout tests/test_data.py writes) under
+    ``root``: one sequence car/seq0 of ``n_frames`` JPEG frames of width x
+    height (an ellipse on a gradient, with noise), PNG masks of the
+    ellipse, its bbox per mask, ring cameras looking at the origin,
+    set_lists_fewview_dev.json and the .jgz annotations."""
+    import gzip
+
+    import numpy as np
+    from PIL import Image
+
+    cat, seq = os.path.join(root, "car"), "seq0"
+    for sub in ("set_lists", f"{seq}/images", f"{seq}/masks"):
+        os.makedirs(os.path.join(cat, sub), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:height, :width].astype(np.float32)
+    frames, set_list, bboxes = [], [], {}
+    for i in range(n_frames):
+        th = 2 * np.pi * i / n_frames
+        cx, cy = width / 2 + 60 * np.cos(th), height / 2 + 40 * np.sin(th)
+        ax, ay = 0.3 * width, 0.33 * height
+        inside = ((xx - cx) / ax) ** 2 + ((yy - cy) / ay) ** 2 < 1.0
+        base = np.stack([xx / width, yy / height, 0.5 + 0.5 * np.cos(th + xx / 97.0)], -1)
+        img = np.where(inside[..., None], 1.0 - 0.7 * base, 0.3 * base) * 255.0
+        img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+        img_rel = f"car/{seq}/images/frame{i:06d}.jpg"
+        mask_rel = f"car/{seq}/masks/frame{i:06d}.png"
+        Image.fromarray(img).save(os.path.join(root, img_rel), quality=90)
+        Image.fromarray(inside.astype(np.uint8) * 255).save(os.path.join(root, mask_rel))
+        bboxes[mask_rel] = [float(cx - ax), float(cy - ay), float(cx + ax), float(cy + ay)]
+        c, s_ = np.cos(th), np.sin(th)
+        frames.append({"sequence_name": seq, "frame_number": i, "viewpoint": {
+            "R": [[c, 0.0, s_], [0.0, 1.0, 0.0], [-s_, 0.0, c]], "T": [0.0, 0.0, 3.0],
+            "focal_length": [2.0, 2.0], "principal_point": [0.0, 0.0]}})
+        set_list.append([seq, i, img_rel])
+    with open(os.path.join(cat, "set_lists", "set_lists_fewview_dev.json"), "w") as f:
+        json.dump({"train": set_list}, f)
+    for name, data in (("sequence_annotations.jgz",
+                        [{"sequence_name": seq, "viewpoint_quality_score": 0.9}]),
+                       ("frame_annotations.jgz", frames), ("car_bbox.jgz", bboxes)):
+        with gzip.open(os.path.join(cat, name), "wt") as f:
+            json.dump(data, f)
+    return root
+
+
+def run_train_cli_path(torch, counters):
+    """python -m custom_diffusion360_torch.cli.train at full width, in
+    process, on a synthetic CO3D tree: SDXL (EngineConfig() with bf16
+    compute, as [train]), random weights from --seed 23, 512^2, 1 + 4
+    views, batch 1, 4 steps, EMA, a step delta and a full checkpoint at
+    step 2, a validation loss, then capture of the 20 valid frames and the
+    delta export; then cli.sample.main on that delta and cameras at 512^2,
+    x3, 8 reference views, 4 steps, with both kernel switches. The sample
+    takes the capture's resolution: a delta's reference buffers are token
+    grids of the captured images, and a pose block renders at its
+    references' grid (as in the JAX package, models/nerf.py:766), so a
+    delta captured at 512^2 cannot drive a 1024^2 sample. The counters are
+    zeroed just before the training call and read after the sample."""
+    import csv
+    import tempfile
+
+    import numpy as np
+
+    from custom_diffusion360_torch.cli import sample as cli_sample
+    from custom_diffusion360_torch.cli import train as cli_train
+    from custom_diffusion360_torch.engine import Engine
+    from custom_diffusion360_torch.io.delta import iter_pose_blocks
+    from custom_diffusion360_torch.models.unet import UNetConfig
+
+    orig_init = patch_init_params(torch, on_cpu=False)
+    saved_env = {k: os.environ.get(k) for k in CLI_SWITCHES}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.time()
+            root = write_co3d_tree(os.path.join(d, "co3d"))
+            log(f"[train-cli] CO3D tree of {CO3D_FRAMES} {CO3D_W}x{CO3D_H} frames written in "
+                f"{time.time() - t0:.1f} s")
+            out = os.path.join(d, "run")
+            argv = ["--data_root", root, "--category", "car", "--output_dir", out,
+                    "--seed", str(TRAIN_CLI_SEED), "--img_size", "512", "--num_images", "5",
+                    "--batch_size", "1", "--max_steps", str(TRAIN_CLI_STEPS), "--log_every",
+                    "1", "--ckpt_every", "2", "--full_ckpt_every", "2", "--val_every", "2",
+                    "--use_ema", "--device", "cuda", "--override", "compute_dtype=bfloat16"]
+            for c in counters.values():
+                c.launches = 0
+                c.launches_by_shape.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            summary = cli_train.main(argv)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            peak_train = torch.cuda.max_memory_allocated()
+            train_launches = {k: c.launches for k, c in counters.items()}
+            with open(os.path.join(out, "metrics.csv"), newline="") as f:
+                rows = list(csv.DictReader(f))
+            steps = [r for r in rows if r.get("loss")]
+            vals = [r for r in rows if r.get("val_loss")]
+            for r in steps:
+                log(f"[train-cli] step {r['step']}: {float(r['step_ms']):.1f} ms, loss "
+                    f"{float(r['loss']):.6f}, grad_norm {float(r['grad_norm']):.6f}, loader wait "
+                    f"{float(r['data_ms']):.2f} ms")
+            for r in vals:
+                log(f"[train-cli] step {r['step']}: val_loss {float(r['val_loss']):.6f}")
+            step_ms = [s["step_s"] * 1e3 for s in summary["steps"]]
+            data_ms = [s["data_s"] * 1e3 for s in summary["steps"]]
+            share = sum(data_ms) / (sum(data_ms) + sum(step_ms))
+            ipm = float(steps[-1]["images_per_min"])
+            delta_path = os.path.join(out, "delta_last.npz")
+            with np.load(delta_path) as z:
+                delta = {k: z[k] for k in z.files}
+            mib = os.path.getsize(delta_path) / 2**20
+            prefixes = [p for p, _, _, _ in iter_pose_blocks(UNetConfig())]
+            refs = [delta.get(p + ".references") for p in prefixes]
+            have_refs = all(r is not None and r.shape[0] == CO3D_FRAMES // 2 + 1 for r in refs)
+            refs_finite = have_refs and all(bool(np.isfinite(r).all()) for r in refs)
+            files = [os.path.join(out, "delta_step2.npz"),
+                     os.path.join(out, "checkpoints", "step_00000004")]
+            log(f"[train-cli] main() {train_s:.1f} s; step median {statistics.median(step_ms):.1f} "
+                f"ms (min {min(step_ms):.1f}, max {max(step_ms):.1f}); images/min {ipm:.2f}; "
+                f"loader share of a step {100 * share:.2f} %; capture {summary['capture_s']:.2f} s "
+                f"({CO3D_FRAMES // 2} views + the zero image); delta {mib:.1f} MiB, "
+                f"{len(delta)} keys, {len(prefixes)} pose blocks with references "
+                f"{'OK' if have_refs else 'MISSING'}; peak memory allocated "
+                f"{peak_train / 2**30:.2f} GiB")
+            log(f"[train-cli] launches in the training CLI {json.dumps(train_launches)}")
+
+            os.environ.update(CLI_SWITCHES)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (rec,) = cli_sample.main([
+                "--delta_ckpt", delta_path, "--cameras", os.path.join(out, "cameras.npz"),
+                "--output_dir", os.path.join(d, "samples"), "--seed", str(TRAIN_CLI_SEED),
+                "--resolution", "512", "--num_images", "1", "--batch", "1", "--num_steps",
+                "4", "--device", "cuda", "--dtype", "bfloat16"])
+            sample_s = time.perf_counter() - t0
+            peak_sample = torch.cuda.max_memory_allocated()
+            launches = {k: c.launches for k, c in counters.items()}
+            by_shape = {(k, shape): n for k, c in counters.items()
+                        for shape, n in c.launches_by_shape.items()}
+            img = rec["images"][0]
+            log(f"[train-cli] launches (training CLI + sampling CLI) {json.dumps(launches)}")
+            for (k, shape), n in sorted(by_shape.items(), key=str):
+                log(f"[train-cli] launches {k} {shape}: {n}")
+            log(f"[train-cli] sample on the trained delta, 512^2 x3, 4 steps: main() "
+                f"{sample_s:.1f} s, image latency {rec['seconds']:.2f} s, image {img.shape} "
+                f"uint8 mean {float(img.mean()):.2f} std {float(img.std()):.2f}; peak memory "
+                f"allocated {peak_sample / 2**30:.2f} GiB")
+            losses = [float(r["loss"]) for r in steps] + [float(r["val_loss"]) for r in vals]
+            gnorms = [float(r["grad_norm"]) for r in steps]
+            print(json.dumps({"train_cli_path": {
+                "main_s": train_s, "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+                "data_ms": data_ms, "loader_share": share, "images_per_min": ipm,
+                "loss": [float(r["loss"]) for r in steps], "grad_norm": gnorms,
+                "val_loss": [float(r["val_loss"]) for r in vals],
+                "capture_s": summary["capture_s"], "delta_mib": mib, "delta_keys": len(delta),
+                "peak_gib": peak_train / 2**30, "sample_s": sample_s,
+                "sample_image_latency_s": rec["seconds"], "sample_peak_gib": peak_sample / 2**30,
+                "image_mean": float(img.mean()), "image_std": float(img.std()),
+                "launches": launches}}), flush=True)
+            problems = []
+            if len(steps) != TRAIN_CLI_STEPS or not vals:
+                problems.append(f"{len(steps)} step rows and {len(vals)} validation rows")
+            if not all(math.isfinite(x) for x in losses + gnorms):
+                problems.append(f"loss or grad_norm not finite: {losses} {gnorms}")
+            if not have_refs or "embed.0" not in delta or "embed.1" not in delta:
+                problems.append("the delta lacks a pose block's references or the embed rows")
+            elif not refs_finite:
+                problems.append("a captured buffer is not finite")
+            problems += [f"{p} is missing" for p in files if not os.path.exists(p)]
+            if img.shape != (512, 512, 3) or float(img.std()) <= 1.0:
+                problems.append("no finite, non-constant 512^2 sample")
+            if problems:
+                raise RuntimeError("training CLI path: " + "; ".join(problems))
+    finally:
+        Engine.init_params = orig_init
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     torch.cuda.empty_cache()
     return launches, by_shape
 
@@ -1399,6 +1610,55 @@ def run_small_train_check(torch):
         raise RuntimeError("small-config training step on the card disagrees with the CPU")
 
 
+def run_small_capture_check(torch):
+    """capture_references on a small config (SMALL_UNET and SMALL_VAE, 3
+    images at 256^2 plus the zero image) with the same given draws: bf16
+    through the kernels on the card vs f32 through the plain versions on
+    the CPU, from the same weights. Every pose block's buffer must agree
+    within SMALL_TOL of its max|ref|."""
+    from custom_diffusion360_torch.draws import Draws
+    from custom_diffusion360_torch.engine import Engine, EngineConfig
+    from custom_diffusion360_torch.models.unet import UNetConfig
+    from custom_diffusion360_torch.models.vae import VAEConfig
+    from custom_diffusion360_torch.train.capture import capture_references
+
+    n, res = 3, 256
+    lat = res // 8
+    base = EngineConfig(unet=UNetConfig(**SMALL_UNET), vae=VAEConfig(**SMALL_VAE),
+                        conditioner=small_conditioner())
+    params = Engine(base, device="cpu").init_params(seed=30, dtype=torch.float32)
+    params = perturb_zero_leaves(torch, params, seed=31)
+    gen = torch.Generator().manual_seed(32)
+    imgs = torch.rand((n, res, res, 3), generator=gen) * 2 - 1
+    z = (1, n + 1, lat, lat, 4)
+    given = {"vae_eps": torch.randn(z[1:], generator=gen),
+             "sigma_ref_idx": torch.randint(0, 50, (1,), generator=gen),
+             "noise_ref": torch.randn(z, generator=gen), "noise_ref2": torch.randn(z, generator=gen)}
+    cond = make_cond(torch, base.unet, n + 2, "cpu", torch.float32, seed=33)
+    cams = make_cameras(torch, n + 1, 1, "cpu", seed=34)
+    outs = {}
+    for device, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        cfg = EngineConfig(unet=UNetConfig(**SMALL_UNET, nerf_dtype=str(dtype)[6:]),
+                           vae=VAEConfig(**SMALL_VAE), conditioner=base.conditioner,
+                           compute_dtype=str(dtype)[6:])
+        refs = capture_references(
+            Engine(cfg, device=device), _map(params, lambda x: x.to(device, dtype)),
+            imgs.to(device), cams.to(device), {k: v.to(device, dtype) for k, v in cond.items()},
+            Draws(given={k: v.to(device) for k, v in given.items()}))
+        outs[device] = {(a, d): buf.float().cpu() for a, per in refs.items()
+                        for d, buf in per.items()}
+    errs = []
+    for key, ref in sorted(outs["cpu"].items()):
+        got = outs["cuda"][key]
+        err = float((got - ref).abs().max())
+        tol = SMALL_TOL * float(ref.abs().max())
+        errs.append(err <= tol and got.shape == ref.shape)
+        log(f"[small-capture] block {key} {tuple(ref.shape)}: max-abs err cuda-bf16 vs cpu-f32 "
+            f"{err:.4e} (tol {tol:.4e}) {'OK' if errs[-1] else 'FAIL'}")
+    if not errs or not all(errs):
+        raise RuntimeError("small-config capture on the card disagrees with the CPU")
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -1480,11 +1740,13 @@ def main():
     launches, by_shape, grad_shapes = run_train_path(torch, counters)
     paths["train"] = (launches, by_shape)
     paths["cli"] = run_cli_path(torch, counters, main_decode_ms)
+    paths["train_cli"] = run_train_cli_path(torch, counters)
     check_launched(torch, results, {key for _, shapes in paths.values() for key in shapes})
     time_attention_backward(torch, grad_shapes)
     run_small_check(torch)
     run_small_cli_check(torch)
     run_small_train_check(torch)
+    run_small_capture_check(torch)
 
     failed = [r["name"] for r in results if not r["ok"]]
     if failed:
@@ -1495,7 +1757,8 @@ def main():
     # bnhd route run only under the CLI phase's switches
     switched = {"conv3x3", "bnhd"}
     expected = {"sample": set(counters) - {"bilinear_bwd"} - switched,
-                "train": set(counters) - switched, "cli": set(counters) - {"bilinear_bwd"}}
+                "train": set(counters) - switched, "cli": set(counters) - {"bilinear_bwd"},
+                "train_cli": set(counters) - switched}
     for path, (launches, _) in paths.items():
         missing = sorted(k for k in expected[path] if launches[k] == 0)
         if missing:

@@ -14,8 +14,10 @@ Runs on the CUDA card unless ``--device cpu``. Without ``--base_ckpt`` the
 weights are random from ``--seed``; without ``--cameras`` two rings of 20
 training and 7 validation cameras stand in; without ``--vocab_dir`` a
 synthetic tokenizer of a few words does. ``--smoke`` runs a tiny
-configuration. The JAX CLI's ``--latency_shard`` and ``--override`` are not
-ported, and ``--sampler`` takes ``euler_edm`` only.
+configuration; ``--config`` (a YAML file) and ``--override key.path=value``
+change the EngineConfig after it, in that order. The JAX CLI's
+``--latency_shard`` is not ported, and ``--sampler`` takes ``euler_edm``
+only.
 """
 from __future__ import annotations
 
@@ -43,10 +45,10 @@ from ..io.cameras_io import load_cameras_npz
 from ..io.delta import apply_delta_state_dict, load_delta_npz, load_delta_torch
 from ..models.clip import ClipTextConfig
 from ..models.conditioner import ConditionerConfig, get_unconditional_conditioning
-from ..models.nn import torch_dtype
 from ..models.unet import UNetConfig
 from ..models.vae import VAEConfig
 from ..train.trainer import tree_map
+from ..utils.config import load_config
 
 # --smoke: the JAX tests' TINY_CFG (tests/test_engine.py) with 64-channel
 # heads, the head dim the attention kernel is built for
@@ -97,6 +99,9 @@ def build_parser():
     p.add_argument("--interp_end", type=float, default=0.3)
     p.add_argument("--interp_step", type=float, default=0.1)
     p.add_argument("--smoke", action="store_true", help="tiny random configuration")
+    p.add_argument("--config", default=None, help="EngineConfig YAML overrides")
+    p.add_argument("--override", action="append", default=[],
+                   help="config dotlist override, repeatable")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -166,13 +171,14 @@ def main(argv=None, *, callback=None):
     "seconds"}."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    dtype = torch_dtype(args.dtype)
     cfg = EngineConfig(compute_dtype=args.dtype,
                        unet=UNetConfig(nerf_dtype=args.dtype, nerf_chunk_size=args.nerf_chunk))
     if args.smoke:
         cfg = dataclasses.replace(
             SMOKE_CFG, compute_dtype=args.dtype,
             unet=dataclasses.replace(SMOKE_CFG.unet, nerf_dtype=args.dtype))
+    cfg = load_config(cfg, args.config, args.override)
+    dtype = cfg.dtype
     eng = Engine(cfg, device=device)
 
     # ---- params ----

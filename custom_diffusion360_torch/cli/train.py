@@ -1,0 +1,409 @@
+"""Training CLI (port of custom_diffusion360_tpu/cli/train.py): build the
+engine, the CO3D data and the trainer, run the fine-tuning loop (the pose
+blocks' leaves and the V* token rows), log step metrics, checkpoint, and at
+the end capture the reference features and export the delta checkpoint,
+the cameras file and the config, which the port's cli/sample.py reads.
+
+    python -m custom_diffusion360_torch.cli.train \\
+        --data_root data/co3d --category car --base_ckpt sd_xl_base_1.0.safetensors \\
+        --output_dir runs/car0 --max_steps 1610 --batch_size 4 \\
+        --override compute_dtype=bfloat16
+
+Runs on the CUDA card unless ``--device cpu``. ``--smoke`` trains the
+sampling CLI's tiny ``SMOKE_CFG`` on synthetic batches (no dataset or
+weights needed). Without ``--base_ckpt`` the weights are random from
+``--seed``. Each step's draws come from a generator seeded by (seed, step),
+so a resumed run continues as the uninterrupted one would.
+
+Not ported yet, and refused: ``--sample_every`` / ``--log_steps_increase``
+(they need ``Engine.log_images`` and the live-reference ``Engine.sample``,
+ROADMAP.md Queue 1 item 1) and ``--multihost`` with its ``--coordinator``,
+``--num_processes`` and ``--process_id`` (ROADMAP.md Queue 1 item 4).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import signal
+import time
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..draws import Draws
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--data_root", default="data/co3d")
+    p.add_argument("--category", default="car")
+    p.add_argument("--single_id", type=int, default=0)
+    p.add_argument("--base_ckpt", default=None)
+    p.add_argument("--output_dir", default="runs/run0")
+    p.add_argument("--name", default="")
+    p.add_argument("--max_steps", type=int, default=1610)
+    p.add_argument("--batch_size", type=int, default=1, help="per-device batch")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--scale_lr", action="store_true",
+                   help="scale lr by accumulate * devices * batch")
+    p.add_argument("--trainkeys", default="pose", choices=["pose", "poseattn", "all"])
+    p.add_argument("--img_size", type=int, default=512)
+    p.add_argument("--num_images", type=int, default=5)
+    p.add_argument("--accumulate", type=int, default=1)
+    p.add_argument("--ckpt_every", type=int, default=1600,
+                   help="write delta_step<N>.npz every N steps")
+    p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--seed", type=int, default=23)
+    p.add_argument("--vocab_dir", default=None)
+    p.add_argument("--modifier_token", default="<new1>")
+    p.add_argument("--reg_dir", default=None)
+    p.add_argument("--config", default=None, help="EngineConfig YAML overrides")
+    p.add_argument("--override", action="append", default=[],
+                   help="config dotlist override, repeatable")
+    p.add_argument("--use_ema", action="store_true")
+    p.add_argument("--ema_decay", type=float, default=0.9999)
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in output_dir/checkpoints")
+    p.add_argument("--full_ckpt_every", type=int, default=0,
+                   help="full training-state checkpoint interval (0 = final only)")
+    p.add_argument("--sample_every", type=int, default=0,
+                   help="image grids every N steps (not ported yet)")
+    p.add_argument("--log_steps_increase", action="store_true",
+                   help="image grids at power-of-two early steps (not ported yet)")
+    p.add_argument("--val_every", type=int, default=0,
+                   help="log a validation loss every N steps")
+    p.add_argument("--multihost", action="store_true", help="multi-host run (not ported yet)")
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="torch.profiler chrome trace of steps [10, 10+N) under profile/")
+    p.add_argument("--wandb", default=None,
+                   help="wandb project name: mirror step metrics to wandb")
+    p.add_argument("--smoke", action="store_true")
+    p.add_argument("--smoke_steps", type=int, default=2)
+    p.add_argument("--device", default="cuda")
+    return p
+
+
+def _refuse_unported(args):
+    if args.sample_every or args.log_steps_increase:
+        raise NotImplementedError(
+            "--sample_every / --log_steps_increase need Engine.log_images and the "
+            "live-reference Engine.sample, not ported yet (ROADMAP.md Queue 1 item 1)")
+    if (args.multihost or args.coordinator is not None or args.num_processes is not None
+            or args.process_id is not None):
+        raise NotImplementedError(
+            "--multihost (--coordinator, --num_processes, --process_id) is not ported yet "
+            "(ROADMAP.md Queue 1 item 4, parallelism)")
+
+
+def step_generator(seed: int, step: int, device, stream: int = 0) -> torch.Generator:
+    """The generator of one step's draws: seeded by (seed, stream, step)."""
+    s = int(np.random.SeedSequence([seed, stream, step]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(s & (2**63 - 1))
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    """Run the CLI. Returns a summary: {"output_dir", "steps": [{"step",
+    "step_s", "data_s"}], "capture_s", "delta", "cameras"}."""
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+
+    from ..engine import Engine, EngineConfig
+    from ..train.checkpoint import latest_checkpoint, restore_train_state, save_train_state
+    from ..train.ema import ema_init, ema_swap, ema_update
+    from ..train.logging import MetricsLogger
+    from ..train.trainer import TrainConfig, Trainer, tree_map
+    from ..utils.config import apply_overrides, config_to_dict, load_config
+    from .sample import SMOKE_CFG, make_tokenizers
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    cfg = EngineConfig()
+    if args.smoke:
+        cfg = SMOKE_CFG
+        args.max_steps = args.smoke_steps
+        args.img_size = 64
+        args.num_images = 3
+        args.ckpt_every = max(args.ckpt_every, 10**6)
+    if args.config:
+        cfg = load_config(cfg, args.config)
+    cfg = apply_overrides(cfg, args.override)
+    eng = Engine(cfg, device=device)
+
+    lr = args.lr
+    if args.scale_lr:
+        lr = lr * args.accumulate * args.batch_size  # one device
+    trainer = Trainer(eng, TrainConfig(lr=lr, trainkeys=args.trainkeys,
+                                       accumulate_grad_batches=args.accumulate))
+
+    if args.base_ckpt:
+        from ..io.torch_convert import load_sdxl_checkpoint
+        from ..models.clip import init_modifier_rows
+
+        params = load_sdxl_checkpoint(args.base_ckpt, cfg.unet, cfg.vae, cfg.conditioner.clip_l,
+                                      cfg.conditioner.open_clip)
+        # the V* rows start from token 42170's embedding
+        for tower in ("clip_l", "open_clip"):
+            params["conditioner"][tower] = init_modifier_rows(params["conditioner"][tower])
+        params = tree_map(lambda x: x.to(device, cfg.dtype) if x.is_floating_point()
+                          else x.to(device), params)
+    else:
+        params = eng.init_params(seed=args.seed)
+
+    # ---- data ----
+    tok_clip, tok_open = make_tokenizers(args.vocab_dir,
+                                         context_length=cfg.conditioner.clip_l.context_length)
+    capture_data = None
+    if args.smoke:
+        train_iter = iter(_synthetic_batches(args, cfg, tok_clip, tok_open, device))
+    else:
+        from ..data.co3d import Co3dConfig, Co3dDataset, DataLoader
+
+        dcfg = Co3dConfig(root=args.data_root, category=args.category,
+                          single_id=args.single_id, img_size=args.img_size,
+                          num_images=args.num_images, modifier_token=args.modifier_token,
+                          addreg=args.reg_dir is not None, reg_dir=args.reg_dir)
+        ds = Co3dDataset(dcfg)
+        loader = DataLoader(ds, args.batch_size, tok_clip, tok_open, seed=args.seed,
+                            device=device)
+        capture_data = (ds, dcfg)
+        train_iter = _cycle(loader)
+
+    state = trainer.init_state(params)
+    del params
+    with open(os.path.join(args.output_dir, "config.json"), "w") as f:
+        json.dump(config_to_dict(cfg), f, indent=2, default=str)
+
+    ckpt_dir = os.path.join(args.output_dir, "checkpoints")
+    mask = tree_map(lambda lab: lab != "frozen", trainer.labels)
+    ema = ema_init(state.params, mask) if args.use_ema else None
+    if args.resume:
+        latest = latest_checkpoint(ckpt_dir)
+        if latest:
+            state, ema = restore_train_state(latest, state, ema)
+            print(f"resumed from {latest} at step {state.step}", flush=True)
+
+    # SIGUSR1 writes a checkpoint, SIGUSR2 enters the debugger (the
+    # reference's melk and divein handlers); the previous handlers come
+    # back when main returns
+    def melk(*_):
+        print("SIGUSR1: writing checkpoint", flush=True)
+        save_train_state(ckpt_dir, state, ema=ema)
+
+    def divein(*_):
+        import pdb
+
+        pdb.set_trace()
+
+    old_handlers = {}
+    for sig, fn in ((signal.SIGUSR1, melk), (signal.SIGUSR2, divein)):
+        try:
+            old_handlers[sig] = signal.signal(sig, fn)
+        except (ValueError, OSError):  # not the main thread
+            pass
+
+    val_iter = None
+    if args.val_every:
+        if args.smoke:
+            val_iter = _cycle(_synthetic_batches(args, cfg, tok_clip, tok_open, device))
+        else:
+            val_iter = _cycle(DataLoader(ds, args.batch_size, tok_clip, tok_open,
+                                         seed=args.seed + 10_000, device=device))
+
+    meter = MetricsLogger(args.output_dir, args.batch_size, wandb_project=args.wandb,
+                          run_name=args.name)
+    profile_dir = os.path.join(args.output_dir, "profile")
+    prof = None
+    steps = []
+    t_start = time.time()
+    try:
+        for step in range(state.step, args.max_steps):
+            if args.profile_steps and step == 10:
+                prof = torch.profiler.profile(activities=_profiler_activities(device))
+                prof.start()
+            t0 = time.perf_counter()
+            batch = next(train_iter)
+            data_s = time.perf_counter() - t0
+            batch.pop("txt", None)
+            batch.pop("txt_ref", None)
+            meter.tic()
+            state, metrics = trainer.train_step(
+                state, batch, Draws(step_generator(args.seed, step, device)))
+            _sync(device)  # the meter times the whole step
+            step_s = meter.toc()
+            steps.append({"step": step, "step_s": step_s, "data_s": data_s})
+            if prof is not None and step == 10 + args.profile_steps - 1:
+                prof.stop()
+                os.makedirs(profile_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+                prof = None
+                print(f"profiler trace written to {profile_dir}", flush=True)
+            if ema is not None:
+                ema = ema_update(ema, state.params, args.ema_decay)
+            if step % args.log_every == 0 or step == args.max_steps - 1:
+                row = meter.log(step, dict(metrics, step_ms=step_s * 1e3,
+                                           data_ms=data_s * 1e3))
+                print(f"step {step}: loss={row.get('loss_total', 0):.4f} " + " ".join(
+                    f"{k}={v:.4f}" for k, v in row.items() if k not in ("loss_total", "step")),
+                    flush=True)
+            if args.val_every and step and step % args.val_every == 0:
+                vbatch = next(val_iter)
+                vbatch.pop("txt", None)
+                vbatch.pop("txt_ref", None)
+                with torch.no_grad():
+                    _, vmetrics = eng.training_loss(
+                        state.params, vbatch, state.step,
+                        Draws(step_generator(args.seed, step, device, stream=1)))
+                row = meter.log(step, {f"val_{k}": v for k, v in vmetrics.items()})
+                print(f"step {step}: val_loss={row.get('val_loss_total', 0):.4f}", flush=True)
+            if args.ckpt_every and step and step % args.ckpt_every == 0:
+                _save_delta(args, state.params, None, cfg, tag=f"step{step}")
+            if args.full_ckpt_every and step and step % args.full_ckpt_every == 0:
+                save_train_state(ckpt_dir, state, ema=ema)
+    except KeyboardInterrupt:
+        print("interrupted: writing last checkpoint", flush=True)
+        save_train_state(ckpt_dir, state, ema=ema)
+        raise
+    finally:
+        if prof is not None:  # the run ended inside the traced steps
+            prof.stop()
+        for sig, fn in old_handlers.items():
+            signal.signal(sig, fn)
+        for it in (train_iter, val_iter):
+            if hasattr(it, "close"):
+                it.close()  # stops a loader's worker thread
+        meter.close()
+
+    save_train_state(ckpt_dir, state, ema=ema)
+    params = state.params if ema is None else ema_swap(state.params, ema)
+    print(f"training done in {time.time() - t_start:.0f}s", flush=True)
+
+    # ---- capture + delta export ----
+    references, capture_s = None, None
+    if capture_data is not None:
+        t0 = time.perf_counter()
+        references = _run_capture(args, eng, params, capture_data, tok_clip, tok_open, device)
+        _sync(device)
+        capture_s = time.perf_counter() - t0
+    delta = _save_delta(args, params, references, cfg, tag="last")
+    print(f"delta checkpoint written to {args.output_dir}", flush=True)
+    return {"output_dir": args.output_dir, "steps": steps, "capture_s": capture_s,
+            "delta": delta,
+            "cameras": None if capture_data is None else
+            os.path.join(args.output_dir, "cameras.npz")}
+
+
+def _profiler_activities(device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
+def _cycle(batches):
+    while True:
+        yield from batches
+
+
+def _save_delta(args, params, references, cfg, tag):
+    from ..io.delta import extract_delta, save_delta_npz
+
+    path = os.path.join(args.output_dir, f"delta_{tag}.npz")
+    save_delta_npz(path, extract_delta(params, references, cfg.unet))
+    return path
+
+
+@torch.no_grad()
+def _run_capture(args, eng, params, capture_data, tok_clip, tok_open, device):
+    """Forward the onlyref set (every valid frame once, plus the zero
+    image) through the reference stream, collect each pose block's buffer,
+    and write cameras.npz."""
+    from ..data.co3d import Co3dDataset
+    from ..geometry.cameras import stack_cameras
+    from ..io.cameras_io import save_cameras_npz
+    from ..models.conditioner import apply_conditioner
+    from ..train.capture import capture_references
+
+    ds, dcfg = capture_data
+    cap_ds = Co3dDataset(dataclasses.replace(dcfg, num_images=2, repeat=1, addlen=True,
+                                             onlyref=True, drop_ratio=0.0, drop_txt=0.0))
+    rng = np.random.default_rng(0)
+    imgs, cams = [], []
+    n_items = len(cap_ds) - 1
+    for i in range(n_items):
+        it = cap_ds.__getitem__(i, rng=rng, validation=True)
+        imgs.append(it["image_ref"][0])
+        cams.append(it["cams"][1])  # the captured frame's camera
+    images_ref = torch.from_numpy(np.stack(imgs))
+
+    it0 = cap_ds.__getitem__(0, rng=rng, validation=True)
+    cam_batch = stack_cameras([it0["cams"][0]] + cams + [cams[-1]]).reshape(1, n_items + 2)
+    prompt = it0["txt"]
+    n_rows = 1 + n_items + 1
+    size = torch.full((n_rows, 2), float(args.img_size), device=device)
+    cond = apply_conditioner(params["conditioner"], {
+        "tokens_clip": torch.from_numpy(tok_clip([prompt] * n_rows)).to(device),
+        "tokens_open": torch.from_numpy(tok_open([prompt] * n_rows)).to(device),
+        "original_size": size, "crop_coords": torch.zeros_like(size), "target_size": size,
+    }, eng.cfg.conditioner, ref=False)
+    references = capture_references(
+        eng, params, images_ref, cam_batch.tensors(device), cond,
+        Draws(step_generator(args.seed, args.max_steps, device, stream=2)))
+    train_cams = stack_cameras(cams).tensors()
+    save_cameras_npz(os.path.join(args.output_dir, "cameras.npz"), train=train_cams,
+                     val=train_cams)
+    return references
+
+
+def _synthetic_batches(args, cfg, tok_clip, tok_open, device):
+    """Random batches in the CO3D batch contract (--smoke), as the JAX
+    CLI's."""
+    from ..geometry.cameras import Cameras
+
+    rng = np.random.default_rng(0)
+    b, n, s = args.batch_size, args.num_images - 1, args.img_size
+    prompt = f"photo of a {args.modifier_token} {args.category}"
+    vocab_l, vocab_g = cfg.conditioner.clip_l.vocab_size, cfg.conditioner.open_clip.vocab_size
+
+    def tensor(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    out = []
+    for _ in range(args.max_steps):
+        th = rng.uniform(0, 2 * np.pi, (b * (1 + n),))
+        R = np.stack([np.array([[np.cos(t), 0, np.sin(t)], [0, 1, 0],
+                                [-np.sin(t), 0, np.cos(t)]], np.float32) for t in th])
+        cams = Cameras.create(R, np.tile(np.array([0, 0, 2.7], np.float32), (b * (1 + n), 1)),
+                              2.0, 0.0, device=device).reshape(b, 1 + n)
+        ones = lambda *shape: torch.ones(shape, device=device)  # noqa: E731
+        batch = {
+            "image": tensor(rng.normal(size=(b, s, s, 3)).astype(np.float32) * 0.3),
+            "image_ref": tensor(rng.normal(size=(b, n, s, s, 3)).astype(np.float32) * 0.3),
+            "mask": ones(b, s // 8, s // 8, 1), "mask_ref": ones(b, n, s // 8, s // 8, 1),
+            "opacity": ones(b, s // 8, s // 8, 1), "drop_im": ones(b), "cams": cams,
+            "tokens_clip": tensor(tok_clip([prompt] * b) % vocab_l),
+            "tokens_open": tensor(tok_open([prompt] * b) % vocab_g),
+            "tokens_clip_ref": tensor(tok_clip([prompt] * (b * n)) % vocab_l),
+            "tokens_open_ref": tensor(tok_open([prompt] * (b * n)) % vocab_g),
+        }
+        for suffix, m in (("", b), ("_ref", b * n)):
+            batch["original_size" + suffix] = torch.full((m, 2), float(s), device=device)
+            batch["crop_coords" + suffix] = torch.zeros((m, 2), device=device)
+            batch["target_size" + suffix] = torch.full((m, 2), float(s), device=device)
+        out.append(batch)
+    return out
+
+
+if __name__ == "__main__":
+    main()

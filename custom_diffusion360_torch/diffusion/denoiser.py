@@ -12,6 +12,7 @@ parity), c_in-scaled, and their sigmas quantized to grid indices.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -20,6 +21,18 @@ from .discretization import legacy_ddpm_sigmas
 from .scaling import eps_scaling, eps_weighting
 
 NUM_IDX = 1000
+
+
+@dataclasses.dataclass(frozen=True)
+class DenoiserConfig:
+    """The JAX package's denoiser settings, so its config files load; the
+    port implements these values only (``Engine`` refuses others)."""
+
+    scaling: str = "eps"
+    weighting: str = "eps"
+    discrete: bool = True
+    num_idx: int = NUM_IDX
+    quantize_c_noise: bool = True
 
 
 def _append_dims(x, ndim):

@@ -25,7 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from . import resolve_device
-from .diffusion.denoiser import Denoiser
+from .diffusion.denoiser import Denoiser, DenoiserConfig
 from .diffusion.discretization import legacy_ddpm_sigmas
 from .diffusion.loss import DiffusionLossConfig, combine_losses, diffusion_loss_img_ref
 from .diffusion.sampling import euler_edm_sample, to_d
@@ -43,6 +43,7 @@ class EngineConfig:
     unet: UNetConfig = UNetConfig()
     vae: VAEConfig = VAEConfig()
     conditioner: ConditionerConfig = ConditionerConfig()
+    denoiser: DenoiserConfig = DenoiserConfig()
     loss: DiffusionLossConfig = DiffusionLossConfig()
     num_sample_steps: int = 50
     compute_dtype: str = "float32"
@@ -54,6 +55,10 @@ class EngineConfig:
 
 class Engine:
     def __init__(self, cfg: EngineConfig = EngineConfig(), device="cuda"):
+        if cfg.denoiser != DenoiserConfig():
+            raise NotImplementedError(
+                f"denoiser {cfg.denoiser}: the port has the discrete eps denoiser with "
+                "1000 quantized steps only (other scalings: ROADMAP.md Queue 1 item 3)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.denoiser = Denoiser(device=self.device)

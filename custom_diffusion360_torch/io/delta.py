@@ -6,8 +6,10 @@ for the pose weights (``...pose_emb_layers.weight``, ``...pose_featurenerf.
 model.*``), per-block ``...references`` buffers, and one ``"embed"`` entry
 holding ``[clip_l_rows (M, 768), open_clip_rows (M, 1280)]``. Values are
 numpy arrays (``.npz``) or CPU tensors (the reference's torch ``.ckpt``,
-whose bf16 leaves numpy cannot hold). ``extract_delta`` is training-side and
-not ported.
+whose bf16 leaves numpy cannot hold). ``extract_delta`` builds one from
+trained params and captured reference buffers, as numpy float32 arrays
+(numpy has no bfloat16, so buffers computed in bf16 are written as
+float32).
 """
 from __future__ import annotations
 
@@ -71,6 +73,43 @@ _POSE_LEAVES = [
     (".pose_featurenerf.model.nviews.weight", ("pose_featurenerf", "nviews", "w"), True),
     (".pose_featurenerf.model.nviews.bias", ("pose_featurenerf", "nviews", "b"), False),
 ]
+
+
+def _tree_get(d, keys):
+    for k in keys:
+        if not isinstance(d, dict) or k not in d:
+            return None
+        d = d[k]
+    return d
+
+
+def _f32_numpy(v):
+    return v.detach().float().cpu().numpy()
+
+
+def extract_delta(params: dict, references: dict = None,
+                  cfg: UNetConfig = UNetConfig()) -> Dict[str, np.ndarray]:
+    """The reference-format delta_state_dict of ``params`` (the inverse of
+    ``apply_delta_state_dict``): each pose block's leaves as float32 torch
+    (out, in) arrays, its ``references`` buffer (N + 1, hw, C) when
+    ``references`` {attn_id: {d: buffer}} holds one, and ``"embed"``, the
+    two V* modifier-row arrays."""
+    out: Dict[str, np.ndarray] = {}
+    for prefix, path, attn_id, d in iter_pose_blocks(cfg):
+        blk = _get_block(params["unet"], path, d)
+        for suffix, keys, transpose in _POSE_LEAVES:
+            v = _tree_get(blk, keys)
+            if v is None:
+                continue
+            v = _f32_numpy(v)
+            out[prefix + suffix] = np.ascontiguousarray(v.T) if transpose else v
+        if references and d in references.get(attn_id, {}):
+            out[prefix + ".references"] = _f32_numpy(references[attn_id][d])
+    if "conditioner" in params:
+        cond = params["conditioner"]
+        out["embed"] = [_f32_numpy(cond["clip_l"]["modifier_rows"]),
+                        _f32_numpy(cond["open_clip"]["modifier_rows"])]
+    return out
 
 
 def _tree_set(d, keys, value):

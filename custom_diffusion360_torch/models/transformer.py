@@ -354,7 +354,8 @@ def spatial_transformer_apply(p, x, context, cfg: TransformerConfig, *,
     each pose block at depth d renders from its dense tokens with the
     per-row ``mask_ref`` and the draws ``draws.child(str(d))``.
     Returns (x, xr or None, aux) with aux = dict(fg_masks, alphas, rgbs,
-    rendered)."""
+    rendered, ref_tokens), ref_tokens {d: (B, Nref, hw, C)} the reference
+    stream's tokens each pose block rendered from (training and capture)."""
     b, h, w, c = x.shape
     x_in = x
     x = group_norm(p["norm"], x).reshape(b, h * w, c)
@@ -366,7 +367,7 @@ def spatial_transformer_apply(p, x, context, cfg: TransformerConfig, *,
             xr = linear(p["proj_in"], group_norm(p["norm"], xr).reshape(br, h * w, c))
 
     prev_weights = None
-    fg_masks, alphas_list, rgbs, rendered_out = [], [], [], {}
+    fg_masks, alphas_list, rgbs, rendered_out, ref_tokens_out = [], [], [], {}, {}
     for d in range(cfg.depth):
         blk = p["blocks"][d]
         kv = None if ctx_kv is None else ctx_kv[d]
@@ -376,6 +377,7 @@ def spatial_transformer_apply(p, x, context, cfg: TransformerConfig, *,
         refs = None if ref_features is None else ref_features.get(d)
         if xr is not None and cfg.block_has_nerf(d):
             refs = xr.reshape(b, br // b, h * w, -1)
+            ref_tokens_out[d] = refs
         cache = None if nerf_cache is None else nerf_cache.get(d)
         if cfg.block_has_nerf(d) and (refs is not None or cache is not None):
             x, aux = transformer_block_apply(
@@ -400,4 +402,4 @@ def spatial_transformer_apply(p, x, context, cfg: TransformerConfig, *,
         with torch.no_grad():
             xr = linear(p["proj_out"], xr).reshape(br, h, w, c) + xr_in
     return x, xr, dict(fg_masks=fg_masks, alphas=alphas_list, rgbs=rgbs,
-                       rendered=rendered_out)
+                       rendered=rendered_out, ref_tokens=ref_tokens_out)

@@ -270,7 +270,8 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
     tensors expand back at that layer (after the input blocks if they have
     no attention). Ignored when the reference stream runs.
     Returns (eps in x.dtype, aux) with aux = dict(fg_mask_list,
-    alphas_list, rgb_list, rendered)."""
+    alphas_list, rgb_list, rendered, ref_tokens), ref_tokens {attn_id: {d:
+    (B, Nref, hw, C)}} the reference stream's tokens at the pose blocks."""
     compute_dtype = torch_dtype(compute_dtype)
     b = x.shape[0]
     emb = _mlp2(params["time_embed"], timestep_embedding(timesteps, cfg.model_channels))
@@ -293,7 +294,7 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
 
     inb_spec, mid_spec, outb_spec, _ = build_unet_spec(cfg)
     h = x.to(compute_dtype)
-    fg_mask_list, alphas_list, rgb_list, rendered = [], [], [], {}
+    fg_mask_list, alphas_list, rgb_list, rendered, ref_tokens = [], [], [], {}, {}
 
     expand_rows = None
     emb_full = emb
@@ -349,6 +350,8 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
             rgb_list.extend(aux["rgbs"])
             if aux["rendered"]:
                 rendered[attn_id] = aux["rendered"]
+            if aux["ref_tokens"]:
+                ref_tokens[attn_id] = aux["ref_tokens"]
             return h, hr
         raise ValueError(kind)
 
@@ -379,5 +382,5 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
 
     out = conv2d(params["out_conv"], group_norm_silu(params["out_norm"], h, eps=1e-5))
     aux = dict(fg_mask_list=fg_mask_list, alphas_list=alphas_list,
-               rgb_list=rgb_list, rendered=rendered)
+               rgb_list=rgb_list, rendered=rendered, ref_tokens=ref_tokens)
     return out.to(x.dtype), aux

@@ -14,11 +14,23 @@ require grad (the frozen leaves keep their dtype and never require grad)
 and builds one ``torch.optim.AdamW`` with a group per trainable label.
 AdamW's decoupled decay matches optax.adamw; a trainable leaf that got no
 gradient gets a zero one, so it decays as optax would decay it.
+
+The options follow the JAX optimizer chain (``make_optimizer``):
+
+* ``max_grad_norm``: optax.clip_by_global_norm inside each label's chain,
+  so the norm is taken over the 'train' leaves and, apart, over the
+  'lowlr' leaves; a group over the limit is scaled by limit / norm;
+* ``accumulate_grad_batches`` = k: optax.MultiSteps. Every call adds its
+  gradient to a running mean; every k-th call clips that mean, applies one
+  AdamW update (weight decay included) and clears it. The parameters do
+  not move in between. ``TrainState.step`` counts calls;
+* ``lr_schedule``: each group's lr is base x schedule(n) for its n-th
+  applied update (n from 0), set just before ``optimizer.step()``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -32,6 +44,11 @@ class TrainConfig:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    accumulate_grad_batches: int = 1
+    max_grad_norm: Optional[float] = None
+    # lr multiplier as a function of the applied-update count
+    # (train/lr_schedule.py); None: constant lr
+    lr_schedule: Optional[Callable[[int], float]] = None
 
 
 def tree_map(fn, *trees):
@@ -89,9 +106,15 @@ def trainable_mask(params: dict, trainkeys: str = "pose"):
 
 
 class TrainState(NamedTuple):
+    """params: the tree (trainable leaves f32, requiring grad); step: the
+    count of train_step calls; accum: {"mini_step", "applied", "grads"}, the
+    calls since the last update, the updates applied, and the running mean
+    of the gradients under accumulation (grads None until the first call)."""
+
     params: Any
     optimizer: torch.optim.Optimizer
     step: int
+    accum: dict
 
 
 class Trainer:
@@ -118,20 +141,22 @@ class Trainer:
                 groups[lab].append(leaf)
         lrs = {"train": cfg.lr, "lowlr": cfg.lr * cfg.multiplier}
         opt = torch.optim.AdamW(
-            [{"params": ps, "lr": lrs[lab]} for lab, ps in groups.items() if ps],
+            [{"params": ps, "lr": lrs[lab], "base_lr": lrs[lab], "label": lab}
+             for lab, ps in groups.items() if ps],
             betas=(cfg.b1, cfg.b2), eps=cfg.eps, weight_decay=cfg.weight_decay,
         )
-        return TrainState(params, opt, 0)
+        return TrainState(params, opt, 0, {"mini_step": 0, "applied": 0, "grads": None})
 
     def trainable(self, state: TrainState):
         return [leaf for lab, leaf in zip(tree_leaves(self.labels), tree_leaves(state.params))
                 if lab != "frozen"]
 
     def train_step(self, state: TrainState, batch, draws):
-        """Forward, backward and one AdamW update of the trainable leaves
-        (in place). Returns (the next state, metrics): the loss terms and
-        ``grad_norm``, the global L2 norm of the trainable gradients, as
-        detached tensors."""
+        """Forward, backward and, on an update call, one AdamW update of the
+        trainable leaves (in place). Returns (the next state, metrics): the
+        loss terms and ``grad_norm``, the global L2 norm of this call's
+        trainable gradients, as detached tensors."""
+        cfg = self.cfg
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         loss, metrics = self.engine.training_loss(state.params, batch, state.step, draws)
@@ -140,9 +165,40 @@ class Trainer:
         for leaf in leaves:
             if leaf.grad is None:
                 leaf.grad = torch.zeros_like(leaf)
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(leaf.grad.float()) for leaf in leaves]))
-        opt.step()
+        grad_norm = _global_norm([leaf.grad for leaf in leaves])
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = grad_norm
-        return TrainState(state.params, opt, state.step + 1), metrics
+        accum = dict(state.accum)
+        k = cfg.accumulate_grad_batches
+        if k > 1:
+            m = accum["mini_step"]
+            if accum["grads"] is None:
+                accum["grads"] = [torch.zeros_like(leaf) for leaf in leaves]
+            for acc, leaf in zip(accum["grads"], leaves):  # running mean, as MultiSteps
+                acc.add_((leaf.grad - acc) / (m + 1))
+            if m + 1 < k:
+                opt.zero_grad(set_to_none=True)
+                accum["mini_step"] = m + 1
+                return state._replace(step=state.step + 1, accum=accum), metrics
+            for acc, leaf in zip(accum["grads"], leaves):
+                leaf.grad.copy_(acc)
+                acc.zero_()
+        if cfg.max_grad_norm is not None:
+            for group in opt.param_groups:  # one global norm per label
+                grads = [p.grad for p in group["params"]]
+                norm = _global_norm(grads)
+                scale = torch.where(norm < cfg.max_grad_norm, torch.ones_like(norm),
+                                    cfg.max_grad_norm / norm)
+                for g in grads:
+                    g.mul_(scale.to(g.dtype))
+        for group in opt.param_groups:
+            group["lr"] = group["base_lr"] * (
+                1.0 if cfg.lr_schedule is None else float(cfg.lr_schedule(accum["applied"])))
+        opt.step()
+        accum.update(mini_step=0, applied=accum["applied"] + 1)
+        return state._replace(step=state.step + 1, accum=accum), metrics
+
+
+def _global_norm(tensors):
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))

@@ -23,7 +23,10 @@ result. conv3x3: bf16
 operands, f32 accumulation in another order than the f32 plain version, one
 bf16 rounding of the output (bias added before it): 1e-2 of max|ref|. The
 conv runs ``csrc/conv3x3.cu`` (wgmma, TMA), GroupNorm ``csrc/group_norm.cu``
-in two launches.
+in two launches. The training CLI's pieces: a train step with
+accumulation, clipping and a schedule, bf16 through the kernels vs f32 on
+the CPU, within 5e-2 of the largest parameter change; the EMA shadow and
+``collate``'s copy to the card exactly.
 """
 import pytest
 import torch
@@ -438,3 +441,116 @@ def test_conv3x3_gate_refuses_f32_on_the_card(gen):
     assert conv3x3_supported(x.cpu(), wt.cpu())  # the plain version takes f32
     with pytest.raises(ValueError, match="conv3x3 kernel does not take"):
         conv3x3_gemm(x, wt)
+
+
+# ---------------------------------------------------------------------------
+# the training CLI's pieces on the card
+# ---------------------------------------------------------------------------
+
+
+def _smoke_training(device, dtype, calls, train_cfg):
+    """``calls`` train steps of the sampling CLI's SMOKE_CFG on the training
+    CLI's synthetic --smoke batches (64^2, 1 + 2 views), weights made on the
+    CPU in f32 from one seed -> (trainable leaves before, after each call)."""
+    import dataclasses
+
+    from custom_diffusion360_torch.cli import sample as cli_sample
+    from custom_diffusion360_torch.cli import train as cli_train
+    from custom_diffusion360_torch.draws import Draws
+    from custom_diffusion360_torch.engine import Engine
+    from custom_diffusion360_torch.train.trainer import Trainer, tree_map
+
+    cfg = dataclasses.replace(cli_sample.SMOKE_CFG, compute_dtype=str(dtype)[6:])
+    params = Engine(cfg, device="cpu").init_params(seed=1, dtype=torch.float32)
+    params = tree_map(lambda x: x.to(device, dtype) if x.is_floating_point() else x.to(device),
+                      params)
+    args = cli_train.build_parser().parse_args(
+        ["--max_steps", str(calls), "--img_size", "64", "--num_images", "3"])
+    tok, _ = cli_sample.make_tokenizers(None, context_length=16)
+    batches = cli_train._synthetic_batches(args, cfg, tok, tok, torch.device(device))
+    trainer = Trainer(Engine(cfg, device=device), train_cfg)
+    state = trainer.init_state(params)
+    history = [[leaf.detach().float().cpu().clone() for leaf in trainer.trainable(state)]]
+    for i, batch in enumerate(batches):
+        state, metrics = trainer.train_step(state, batch, Draws(
+            cli_train.step_generator(0, i, "cpu"), given=None))
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
+        history.append([leaf.detach().float().cpu().clone() for leaf in trainer.trainable(state)])
+    return history
+
+
+def test_train_step_with_accumulation_clipping_and_schedule(gen):
+    """Two calls with accumulate_grad_batches=2, a gradient-norm limit and a
+    warm-up schedule: bf16 through the kernels on the card vs f32 plain on
+    the CPU. The first call moves nothing; after the update the change of
+    the trainable leaves agrees within 5e-2 of its largest entry (eps = 1
+    keeps AdamW's update smooth in the gradient)."""
+    from custom_diffusion360_torch.train.lr_schedule import lambda_warmup_cosine
+    from custom_diffusion360_torch.train.trainer import TrainConfig
+
+    cfg = TrainConfig(lr=0.1, eps=1.0, accumulate_grad_batches=2, max_grad_norm=0.05,
+                      lr_schedule=lambda_warmup_cosine(1, 0.1, 1.0, 0.5, 10))
+    ref = _smoke_training("cpu", torch.float32, 2, cfg)
+    got = _smoke_training("cuda", torch.bfloat16, 2, cfg)
+    for h in (ref, got):
+        assert all(torch.equal(a, b) for a, b in zip(h[0], h[1]))
+    moved_ref = torch.cat([(a - b).ravel() for a, b in zip(ref[2], ref[0])])
+    moved_got = torch.cat([(a - b).ravel() for a, b in zip(got[2], got[0])])
+    scale = float(moved_ref.abs().max())
+    assert scale > 0
+    assert float((moved_got - moved_ref).abs().max()) <= 5e-2 * scale
+
+
+def test_ema_shadow_does_not_alias_the_leaves_on_the_card(gen):
+    from custom_diffusion360_torch.train.ema import ema_init, ema_update
+
+    w = torch.randn((64, 32), generator=gen, device="cuda").requires_grad_(True)
+    params = {"w": w, "frozen": torch.zeros(4, device="cuda")}
+    ema = ema_init(params, {"w": True, "frozen": False})
+    before = ema.shadow["w"].clone()
+    opt = torch.optim.AdamW([w], lr=0.1)
+    w.grad = torch.ones_like(w)
+    opt.step()  # in place
+    assert torch.equal(ema.shadow["w"], before) and not torch.equal(w.detach(), before)
+    ema = ema_update(ema, params, 0.5)
+    d = min(0.5, 2.0 / 11.0)
+    torch.testing.assert_close(ema.shadow["w"], before - (1 - d) * (before - w.detach()))
+
+
+def test_collate_puts_the_batch_on_the_card(gen):
+    import numpy as np
+
+    from custom_diffusion360_torch.data.co3d import collate
+    from custom_diffusion360_torch.geometry.cameras import Cameras
+
+    rng = np.random.default_rng(0)
+
+    def item():
+        return {
+            "image": rng.normal(size=(64, 64, 3)).astype(np.float32),
+            "image_ref": rng.normal(size=(2, 64, 64, 3)).astype(np.float32),
+            "mask": np.ones((8, 8, 1), np.float32), "mask_ref": np.ones((2, 8, 8, 1), np.float32),
+            "opacity": np.ones((8, 8, 1), np.float32), "drop_im": np.float32(1.0),
+            "cams": Cameras.create(np.tile(np.eye(3, dtype=np.float32), (3, 1, 1)),
+                                   rng.normal(size=(3, 3)), 2.0, 0.0, xp=np),
+            "original_size": np.array([64.0, 64.0], np.float32),
+            "target_size": np.array([64.0, 64.0], np.float32),
+            "crop_coords": np.zeros(2, np.float32),
+            "original_size_ref": np.full((2, 2), 64.0, np.float32),
+            "target_size_ref": np.full((2, 2), 64.0, np.float32),
+            "crop_coords_ref": np.zeros((2, 2), np.float32),
+            "txt": "photo of a <new1> car", "txt_ref": ["photo of a <new1> car"] * 2,
+        }
+
+    items = [item(), item()]
+    on_cpu = collate(items)
+    on_card = collate(items, device="cuda")
+    torch.cuda.synchronize()
+    for k, v in on_cpu.items():
+        if k in ("txt", "txt_ref"):
+            assert on_card[k] == v
+        elif k == "cams":
+            for a, b in zip(on_card[k], v):
+                assert a.is_cuda and torch.equal(a.cpu(), b)
+        else:
+            assert on_card[k].is_cuda and torch.equal(on_card[k].cpu(), v), k
