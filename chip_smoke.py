@@ -54,22 +54,35 @@ Phases:
      masks, bboxes, ring cameras, annotations): full-width SDXL in bf16,
      random weights from --seed 23, 512^2, 1 + 4 views, 4 steps, EMA, a
      step delta, a full checkpoint and a validation loss at step 2, then
+     --sample_every 2 --log_steps_increase preview grids at steps 1 and 2
+     (Engine.log_images: an 8-step x2 live-reference sample, the decodes
+     and the FeatureNeRF diagnostics; every grid must be written), then
      the capture of the 20 valid frames and the delta export; then the
      sampling CLI on that delta and cameras at 512^2 (the capture's token
      grids), x3, 4 steps, both switches. Counters zeroed just before the
      training call and read after the sample (path "train_cli");
+  5c. every other sampler through the sampling CLI at the phase-5 settings
+     (1024^2, x3, 8 views, both switches, the same delta), 8 steps each:
+     heun_edm, euler_ancestral, dpmpp2s_ancestral, dpmpp2m, lms, and
+     euler_edm on the EDM schedule (--override discretization_name=edm),
+     each with its network evaluations, image latency and median cached
+     step; then Engine.samplemulti, 2 views of a 512^2 window, 4 steps,
+     decoded. Counters zeroed before the first run and read after
+     samplemulti (path "samplers");
   6. small configurations run twice, on the card through the kernels (bf16)
      and on the CPU through the plain versions (f32): a 3-step sample +
      decode, whose latent and image must agree, a 3-step x3 CLI sample
      (--smoke, both switches on), whose images must agree, one training
-     step, whose loss and trainable gradients must agree, and a capture of
-     reference features, whose buffers must agree.
+     step, whose loss and trainable gradients must agree, a capture of
+     reference features, whose buffers must agree, a 3-step sample with
+     each of the six samplers, an 8-step log_images, whose every image must
+     agree, and a 3-step samplemulti.
 
 ``ms`` is a call's time with the host in it (events around many calls in
 a row), as the main paths pay it; ``device_ms`` is the kernel's own.
 
 Every kernel must launch on a main path (the bilinear backward on the
-training paths, conv3x3 and the bnhd route on the CLI path), and every shape
+training paths, conv3x3 and the bnhd route on the CLI paths), and every shape
 a main path launched must have passed phase 2. Prints the card's name and
 power limit first, a JSON line per main path, per kernel source and path
 the sums over the timed run's launches of device time, library device time
@@ -1347,7 +1360,8 @@ def run_train_cli_path(torch, counters):
                     "--seed", str(TRAIN_CLI_SEED), "--img_size", "512", "--num_images", "5",
                     "--batch_size", "1", "--max_steps", str(TRAIN_CLI_STEPS), "--log_every",
                     "1", "--ckpt_every", "2", "--full_ckpt_every", "2", "--val_every", "2",
-                    "--use_ema", "--device", "cuda", "--override", "compute_dtype=bfloat16"]
+                    "--use_ema", "--device", "cuda", "--override", "compute_dtype=bfloat16",
+                    "--sample_every", "2", "--log_steps_increase"]
             for c in counters.values():
                 c.launches = 0
                 c.launches_by_shape.clear()
@@ -1390,6 +1404,7 @@ def run_train_cli_path(torch, counters):
                 f"{'OK' if have_refs else 'MISSING'}; peak memory allocated "
                 f"{peak_train / 2**30:.2f} GiB")
             log(f"[train-cli] launches in the training CLI {json.dumps(train_launches)}")
+            grid_problems = check_preview_grids(summary["grids"], len(prefixes))
 
             os.environ.update(CLI_SWITCHES)
             torch.cuda.reset_peak_memory_stats()
@@ -1423,8 +1438,9 @@ def run_train_cli_path(torch, counters):
                 "peak_gib": peak_train / 2**30, "sample_s": sample_s,
                 "sample_image_latency_s": rec["seconds"], "sample_peak_gib": peak_sample / 2**30,
                 "image_mean": float(img.mean()), "image_std": float(img.std()),
+                "log_images_s": {g["step"]: g["seconds"] for g in summary["grids"]},
                 "launches": launches}}), flush=True)
-            problems = []
+            problems = list(grid_problems)
             if len(steps) != TRAIN_CLI_STEPS or not vals:
                 problems.append(f"{len(steps)} step rows and {len(vals)} validation rows")
             if not all(math.isfinite(x) for x in losses + gnorms):
@@ -1447,6 +1463,192 @@ def run_train_cli_path(torch, counters):
                 os.environ[k] = v
     torch.cuda.empty_cache()
     return launches, by_shape
+
+
+PREVIEW_STEPS = (1, 2)  # --sample_every 2 --log_steps_increase over 4 steps
+
+
+def check_preview_grids(grids, n_pose_blocks):
+    """Log each preview step's log_images wall time and PNGs; return the
+    problems: a step missing from PREVIEW_STEPS, a missing or unreadable
+    grid, a constant sample."""
+    import numpy as np
+    from PIL import Image
+
+    names = {"inputs", "reconstructions", "samples", "conditioning"}
+    names |= {f"{k}_{i}" for k in ("predicted_rgb", "fg_mask") for i in range(n_pose_blocks)}
+    problems = []
+    if [g["step"] for g in grids] != list(PREVIEW_STEPS):
+        problems.append(f"preview grids at steps {[g['step'] for g in grids]}, expected "
+                        f"{list(PREVIEW_STEPS)}")
+    for g in grids:
+        written = {os.path.basename(p).rsplit("_", 1)[0]: p for p in g["paths"]
+                   if os.path.exists(p)}
+        sizes = sorted({Image.open(p).size for p in written.values()})
+        log(f"[train-cli] step {g['step']}: log_images {g['seconds'] * 1e3:.1f} ms (8-step x2 "
+            f"live-reference sample, two decodes, the diagnostic forward; "
+            f"{g['seconds'] * 1e3 / max(len(written), 1):.1f} ms a grid), {len(written)} PNGs "
+            f"written, sizes {sizes}")
+        missing = sorted(names - set(written))
+        if missing:
+            problems.append(f"step {g['step']}: grids missing {missing}")
+        elif float(np.asarray(Image.open(written["samples"])).std()) <= 1.0:
+            problems.append(f"step {g['step']}: the preview sample is constant")
+    return problems
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: every sampler through the sampling CLI at full width, samplemulti
+# ---------------------------------------------------------------------------
+
+SAMPLER_STEPS = 8
+SAMPLER_RUNS = (  # (label, --sampler, extra flags)
+    ("heun_edm", "heun_edm", ()),
+    ("euler_ancestral", "euler_ancestral", ()),
+    ("dpmpp2s_ancestral", "dpmpp2s_ancestral", ()),
+    ("dpmpp2m", "dpmpp2m", ()),
+    ("lms", "lms", ()),
+    ("euler_edm, EDM schedule", "euler_edm", ("--override", "discretization_name=edm")),
+)
+MULTI_LATENT, MULTI_STRIDE, MULTI_VIEWS, MULTI_STEPS = 64, 48, 2, 4
+
+
+def run_samplers_path(torch, counters):
+    """cli.sample.main in process at the [cli] phase's settings (1024^2,
+    batch 1, one image, x3, 8 views, both switches, the same delta) for
+    each SAMPLER_RUNS entry at SAMPLER_STEPS steps; then Engine.samplemulti,
+    MULTI_VIEWS views of a 512^2 window, MULTI_STEPS steps, x2, decoded.
+    Network evaluations are counted by wrapping Denoiser.__call__. The
+    counters are zeroed just before the first run and read after
+    samplemulti."""
+    import numpy as np
+
+    from custom_diffusion360_torch.cli import sample as cli
+    from custom_diffusion360_torch.diffusion.denoiser import Denoiser
+    from custom_diffusion360_torch.models.unet import UNetConfig
+
+    res = 8 * LATENT
+    base = ["--resolution", str(res), "--num_images", "1", "--batch", "1", "--seed", "0",
+            "--device", "cuda", "--dtype", "bfloat16", "--num_steps", str(SAMPLER_STEPS)]
+    evals = [0]
+    orig_call = Denoiser.__call__
+
+    def counting_call(self, *a, **kw):
+        evals[0] += 1
+        return orig_call(self, *a, **kw)
+
+    Denoiser.__call__ = counting_call
+    runs, problems = {}, []
+    try:
+        with cli_setup(torch, UNetConfig(), LATENT, (768, 1280), on_cpu=False) as setup:
+            for c in counters.values():
+                c.launches = 0
+                c.launches_by_shape.clear()
+            torch.cuda.reset_peak_memory_stats()
+            for label, name, extra in SAMPLER_RUNS:
+                marks = []
+
+                def cb(i):
+                    torch.cuda.synchronize()
+                    marks.append(time.perf_counter())
+
+                evals[0] = 0
+                t0 = time.perf_counter()
+                (rec,) = cli.main(setup.argv(*base, "--sampler", name, *extra), callback=cb)
+                main_s = time.perf_counter() - t0
+                steps = sorted((b - a) * 1e3 for a, b in zip(marks, marks[1:]))
+                img = rec["images"][0]
+                ok = (img.shape == (res, res, 3) and float(img.std()) > 1.0
+                      and bool(np.isfinite(img).all()) and len(marks) == SAMPLER_STEPS)
+                runs[label] = dict(
+                    evaluations=evals[0], image_latency_s=rec["seconds"],
+                    sample_s=rec["sample_s"], decode_ms=rec["decode_s"] * 1e3,
+                    cached_step_ms_median=statistics.median(steps), cached_step_ms_min=steps[0],
+                    cached_step_ms_max=steps[-1], main_s=main_s,
+                    image_mean=float(img.mean()), image_std=float(img.std()))
+                log(f"[samplers] {label}, {SAMPLER_STEPS} steps: {evals[0]} network evaluations; "
+                    f"image latency {rec['seconds']:.2f} s (sample {rec['sample_s']:.2f} s, decode "
+                    f"{rec['decode_s'] * 1e3:.1f} ms); median cached step "
+                    f"{statistics.median(steps):.1f} ms (min {steps[0]:.1f}, max {steps[-1]:.1f}); "
+                    f"main() {main_s:.1f} s; image mean {float(img.mean()):.2f} std "
+                    f"{float(img.std()):.2f} {'OK' if ok else 'FAIL'}")
+                if not ok:
+                    problems.append(f"{label}: no finite, non-constant {res}^2 image")
+        Denoiser.__call__ = orig_call
+        multi = run_samplemulti(torch)
+        if not multi.pop("ok"):
+            problems.append("samplemulti: no finite, non-constant image")
+    finally:
+        Denoiser.__call__ = orig_call
+    launches = {k: c.launches for k, c in counters.items()}
+    by_shape = {(k, shape): n for k, c in counters.items()
+                for shape, n in c.launches_by_shape.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[samplers] peak memory allocated {peak / 2**30:.2f} GiB; launches {json.dumps(launches)}")
+    for (k, shape), n in sorted(by_shape.items(), key=str):
+        log(f"[samplers] launches {k} {shape}: {n}")
+    print(json.dumps({"samplers_path": {"runs": runs, "samplemulti": multi,
+                                        "peak_gib": peak / 2**30, "launches": launches}}),
+          flush=True)
+    if problems:
+        raise RuntimeError("samplers path: " + "; ".join(problems))
+    torch.cuda.empty_cache()
+    return launches, by_shape
+
+
+def run_samplemulti(torch):
+    """Engine.samplemulti at full width: MULTI_VIEWS views, each a
+    MULTI_LATENT window (512^2) under its own cameras and conditioning,
+    windows every MULTI_STRIDE latent columns, x2 guider, 8 reference views
+    of buffers at the window's token grids, MULTI_STEPS steps (each renders),
+    then the decode of the wide latent."""
+    from custom_diffusion360_torch.diffusion.guiders import vanilla_cfg_img_ref
+    from custom_diffusion360_torch.engine import Engine, EngineConfig
+    from custom_diffusion360_torch.models.unet import UNetConfig
+
+    cfg = EngineConfig(unet=UNetConfig(nerf_dtype="bfloat16", nerf_chunk_size=4096),
+                       compute_dtype="bfloat16")
+    eng = Engine(cfg, device="cuda")
+    params = perturb_zero_leaves(torch, eng.init_params(seed=0), seed=5)
+    guider = vanilla_cfg_img_ref(scale=7.5)
+    refs = make_references(torch, cfg.unet, N_REF, MULTI_LATENT, "cuda", seed=6)
+    conds = [make_cond(torch, cfg.unet, 1, "cuda", torch.bfloat16, seed=20 + j)
+             for j in range(MULTI_VIEWS)]
+    uc = make_cond(torch, cfg.unet, 1, "cuda", torch.bfloat16, seed=30)
+    cams_list = [make_cameras(torch, N_REF, guider.num_copies, "cuda", seed=40 + j)
+                 for j in range(MULTI_VIEWS)]
+    width = MULTI_STRIDE * (MULTI_VIEWS + 1)
+    noise = torch.randn((1, MULTI_LATENT, width, 4),
+                        generator=torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    marks = []
+
+    def cb(i):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z = eng.samplemulti(params, conds, uc, guider, noise=noise, cams_list=cams_list,
+                        references=refs, choices=list(range(N_REF)), num_steps=MULTI_STEPS,
+                        window=MULTI_LATENT, stride=MULTI_STRIDE, callback=cb)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    img = eng.decode_first_stage(params, z.to(torch.bfloat16)).float()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    steps = [(b - a) * 1e3 for a, b in zip([t0] + marks[:-1], marks)]
+    ok = (tuple(img.shape) == (1, 8 * MULTI_LATENT, 8 * width, 3)
+          and bool(torch.isfinite(img).all()) and float(img.std()) > 1e-3
+          and len(marks) == MULTI_STEPS)
+    log(f"[samplers] samplemulti: {MULTI_VIEWS} views of {8 * MULTI_LATENT}^2, stride "
+        f"{8 * MULTI_STRIDE} px, {MULTI_STEPS} steps x2: sample {(t1 - t0):.2f} s (steps "
+        f"{', '.join(f'{m:.1f}' for m in steps)} ms), decode of {tuple(img.shape)} "
+        f"{(t2 - t1) * 1e3:.1f} ms; image mean {float(img.mean()):.4f} std "
+        f"{float(img.std()):.4f} {'OK' if ok else 'FAIL'}")
+    out = dict(sample_s=t1 - t0, step_ms=steps, decode_ms=(t2 - t1) * 1e3,
+               image_shape=list(img.shape), ok=ok)
+    del params, eng, z, img
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1659,6 +1861,131 @@ def run_small_capture_check(torch):
         raise RuntimeError("small-config capture on the card disagrees with the CPU")
 
 
+def _small_engines(torch, unet, conditioner=None, seed=0):
+    """(CPU f32 engine, card bf16 engine, f32 params made on the CPU with the
+    zero leaves perturbed) for a small config: the kernels' plain versions
+    on the CPU, the kernels on the card."""
+    from custom_diffusion360_torch.engine import Engine, EngineConfig
+    from custom_diffusion360_torch.models.unet import UNetConfig
+    from custom_diffusion360_torch.models.vae import VAEConfig
+
+    conditioner = conditioner or small_conditioner()
+    engines = {}
+    for device, dtype in (("cpu", "float32"), ("cuda", "bfloat16")):
+        cfg = EngineConfig(unet=UNetConfig(**unet, nerf_dtype=dtype), vae=VAEConfig(**SMALL_VAE),
+                           conditioner=conditioner, compute_dtype=dtype)
+        engines[device] = Engine(cfg, device=device)
+    params = engines["cpu"].init_params(seed=seed, dtype=torch.float32)
+    return engines, perturb_zero_leaves(torch, params, seed=seed + 1)
+
+
+def _compare(torch, tag, what, ref, got):
+    """Log and return whether ``got`` (card) is within SMALL_TOL of
+    max|ref| (CPU) of ``ref``."""
+    ref, got = ref.float().cpu(), got.float().cpu()
+    err = float((got - ref).abs().max())
+    tol = SMALL_TOL * max(1.0, float(ref.abs().max()))
+    ok = got.shape == ref.shape and err <= tol
+    log(f"[{tag}] {what} {tuple(ref.shape)}: max-abs err cuda-bf16 vs cpu-f32 {err:.4e} (tol "
+        f"{tol:.4e}, max|ref| {float(ref.abs().max()):.3f}) {'OK' if ok else 'FAIL'}")
+    return ok
+
+
+def run_small_sampler_check(torch):
+    """Every sampler through a 3-step x3 Engine.sample on the small config
+    (latent 32, 2 views, delta buffers, render cached), with the same
+    per-step noise on both sides: bf16 kernels on the card vs f32 plain on
+    the CPU; the latents must agree within SMALL_TOL of max|ref|."""
+    from custom_diffusion360_torch.diffusion.guiders import scheduled_cfg_img_text_ref
+    from custom_diffusion360_torch.diffusion.sampling import SAMPLERS
+    from custom_diffusion360_torch.draws import Draws
+
+    n_ref, latent, steps = 2, 32, 3
+    engines, params = _small_engines(torch, SMALL_UNET, seed=80)
+    unet = engines["cpu"].cfg.unet
+    refs = make_references(torch, unet, n_ref, latent, "cpu", seed=81)
+    cond = make_cond(torch, unet, 1, "cpu", torch.float32, seed=82)
+    uc = make_cond(torch, unet, 1, "cpu", torch.float32, seed=83)
+    gen = torch.Generator().manual_seed(84)
+    noise = torch.randn((1, latent, latent, 4), generator=gen)
+    step_noise = torch.randn((steps, 1, latent, latent, 4), generator=gen)
+    guider = scheduled_cfg_img_text_ref(scale=7.5, scale_im=3.5)
+    outs = {}
+    for device, eng in engines.items():
+        dtype = eng.cfg.dtype
+        p = _map(params, lambda x: x.to(device, dtype))
+        for name in SAMPLERS:
+            outs[(device, name)] = eng.sample(
+                p, {k: v.to(device, dtype) for k, v in cond.items()},
+                {k: v.to(device, dtype) for k, v in uc.items()}, guider, noise=noise,
+                cams=make_cameras(torch, n_ref, guider.num_copies, device),
+                references=_map(refs, lambda x: x.to(device)), choices=list(range(n_ref)),
+                num_steps=steps, sampler=name, shared_target_cams=True,
+                draws=Draws(given={"step_noise": step_noise.to(device)}))
+    ok = [_compare(torch, "small-samplers", f"{name} latent", outs[("cpu", name)],
+                   outs[("cuda", name)]) for name in SAMPLERS]
+    if not all(ok):
+        raise RuntimeError("small-config samplers on the card disagree with the CPU")
+
+
+def run_small_log_images_check(torch):
+    """Engine.log_images (8 steps, x2 live-reference sample, the diagnostic
+    forward) on the small training config, image 256^2, 1 + 2 views, the
+    same draws on both sides: every image must agree within SMALL_TOL of
+    its max|ref| (at least 1)."""
+    from custom_diffusion360_torch.draws import Draws
+
+    engines, params = _small_engines(torch, SMALL_TRAIN_UNET, seed=90)
+    batch = make_train_batch(torch, engines["cpu"].cfg, 1, 2, 256, "cpu", seed=91,
+                             ids=(1, 5, None, SMALL_CLIP["vocab_size"] - 1))
+    gen = torch.Generator().manual_seed(92)
+    lat = (1, 32, 32, 4)
+    given = {"vae_eps": torch.randn(lat, generator=gen),
+             "vae_eps_ref": torch.randn((2,) + lat[1:], generator=gen),
+             "noise": torch.randn(lat, generator=gen), "diag_noise": torch.randn(lat, generator=gen)}
+    outs = {}
+    for device, eng in engines.items():
+        dtype = eng.cfg.dtype
+        outs[device] = eng.log_images(
+            _map(params, lambda x: x.to(device, dtype) if x.is_floating_point() else x.to(device)),
+            {k: v.to(device) for k, v in batch.items()},
+            Draws(given={k: v.to(device) for k, v in given.items()}), num_steps=8)
+    ok = sorted(outs["cpu"]) == sorted(outs["cuda"]) and len(outs["cpu"]) > 3
+    ok = all([_compare(torch, "small-log-images", k, outs["cpu"][k], outs["cuda"][k])
+              for k in sorted(outs["cpu"])]) and ok
+    if not ok:
+        raise RuntimeError("small-config log_images on the card disagrees with the CPU")
+
+
+def run_small_multi_check(torch):
+    """Engine.samplemulti on the small config: 2 views of a latent-32
+    window, stride 24, 3 steps, x2, the same wide noise on both sides; the
+    latents must agree within SMALL_TOL of max|ref|."""
+    from custom_diffusion360_torch.diffusion.guiders import vanilla_cfg_img_ref
+
+    n_ref, latent, stride, views = 2, 32, 24, 2
+    engines, params = _small_engines(torch, SMALL_UNET, seed=100)
+    unet = engines["cpu"].cfg.unet
+    refs = make_references(torch, unet, n_ref, latent, "cpu", seed=101)
+    conds = [make_cond(torch, unet, 1, "cpu", torch.float32, seed=102 + j) for j in range(views)]
+    uc = make_cond(torch, unet, 1, "cpu", torch.float32, seed=104)
+    noise = torch.randn((1, latent, stride * (views + 1), 4),
+                        generator=torch.Generator().manual_seed(105))
+    guider = vanilla_cfg_img_ref(scale=7.5)
+    outs = {}
+    for device, eng in engines.items():
+        dtype = eng.cfg.dtype
+        outs[device] = eng.samplemulti(
+            _map(params, lambda x: x.to(device, dtype)),
+            [{k: v.to(device, dtype) for k, v in c.items()} for c in conds],
+            {k: v.to(device, dtype) for k, v in uc.items()}, guider, noise=noise,
+            cams_list=[make_cameras(torch, n_ref, 2, device, seed=106 + j) for j in range(views)],
+            references=_map(refs, lambda x: x.to(device)), choices=list(range(n_ref)),
+            num_steps=3, window=latent, stride=stride)
+    if not _compare(torch, "small-multi", "samplemulti latent", outs["cpu"], outs["cuda"]):
+        raise RuntimeError("small-config samplemulti on the card disagrees with the CPU")
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -1740,6 +2067,7 @@ def main():
     launches, by_shape, grad_shapes = run_train_path(torch, counters)
     paths["train"] = (launches, by_shape)
     paths["cli"] = run_cli_path(torch, counters, main_decode_ms)
+    paths["samplers"] = run_samplers_path(torch, counters)
     paths["train_cli"] = run_train_cli_path(torch, counters)
     check_launched(torch, results, {key for _, shapes in paths.values() for key in shapes})
     time_attention_backward(torch, grad_shapes)
@@ -1747,6 +2075,9 @@ def main():
     run_small_cli_check(torch)
     run_small_train_check(torch)
     run_small_capture_check(torch)
+    run_small_sampler_check(torch)
+    run_small_log_images_check(torch)
+    run_small_multi_check(torch)
 
     failed = [r["name"] for r in results if not r["ok"]]
     if failed:
@@ -1758,6 +2089,7 @@ def main():
     switched = {"conv3x3", "bnhd"}
     expected = {"sample": set(counters) - {"bilinear_bwd"} - switched,
                 "train": set(counters) - switched, "cli": set(counters) - {"bilinear_bwd"},
+                "samplers": set(counters) - {"bilinear_bwd"},
                 "train_cli": set(counters) - switched}
     for path, (launches, _) in paths.items():
         missing = sorted(k for k in expected[path] if launches[k] == 0)

@@ -2,8 +2,9 @@
 sample.py): load the base SDXL checkpoint, a delta checkpoint and cameras,
 pick evenly spaced reference views, tokenize the prompts and run the
 conditioner, then sample each target pose (optionally a camera sweep) with
-50 Euler-EDM steps under the x3 image+text guider (``--scale_im`` > 0, the
-default) or the x2 one, decode and save PNGs.
+50 steps of the chosen sampler (Euler-EDM by default) under the x3
+image+text guider (``--scale_im`` > 0, the default) or the x2 one, decode
+and save PNGs.
 
     python -m custom_diffusion360_torch.cli.sample \\
         --base_ckpt sd_xl_base_1.0.safetensors --delta_ckpt delta.npz \\
@@ -15,9 +16,14 @@ weights are random from ``--seed``; without ``--cameras`` two rings of 20
 training and 7 validation cameras stand in; without ``--vocab_dir`` a
 synthetic tokenizer of a few words does. ``--smoke`` runs a tiny
 configuration; ``--config`` (a YAML file) and ``--override key.path=value``
-change the EngineConfig after it, in that order. The JAX CLI's
-``--latency_shard`` is not ported, and ``--sampler`` takes ``euler_edm``
-only.
+change the EngineConfig after it, in that order (``--override
+discretization_name=edm`` or ``sampler.s_churn=...`` reach the sampler).
+``--sampler`` picks one of the six samplers. The initial noise is drawn per
+job, so the deterministic samplers give the same image at any ``--batch``;
+the ancestral ones (and churn) draw their per-step noise per batch of jobs
+from ``--seed``, so a run repeats exactly for a fixed ``--batch``, as in the
+JAX CLI. The JAX CLI's ``--latency_shard`` is not ported, and refused
+(ROADMAP.md Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -34,6 +40,8 @@ import torch
 from .. import resolve_device
 from ..data.tokenizer import ClipTokenizer, make_test_tokenizer
 from ..diffusion.guiders import scheduled_cfg_img_text_ref, vanilla_cfg_img_ref
+from ..diffusion.sampling import SAMPLERS
+from ..draws import Draws
 from ..engine import Engine, EngineConfig
 from ..geometry.cameras import (
     Cameras,
@@ -80,7 +88,9 @@ def build_parser():
     p.add_argument("--scale_im", type=float, default=3.5,
                    help=">0 selects the x3 image+text guider, 0 the x2 one")
     p.add_argument("--num_steps", type=int, default=50)
-    p.add_argument("--sampler", default="euler_edm", choices=["euler_edm"])
+    p.add_argument("--sampler", default="euler_edm", choices=list(SAMPLERS),
+                   help="euler_edm and heun_edm (with churn under --override "
+                        "sampler.s_churn=...), the two ancestral samplers, dpmpp2m, lms")
     p.add_argument("--num_ref", type=int, default=8)
     p.add_argument("--batch", type=int, default=1, help="target poses sampled together")
     p.add_argument("--num_images", type=int, default=4, help="target poses to sample")
@@ -102,6 +112,8 @@ def build_parser():
     p.add_argument("--config", default=None, help="EngineConfig YAML overrides")
     p.add_argument("--override", action="append", default=[],
                    help="config dotlist override, repeatable")
+    p.add_argument("--latency_shard", action="store_true",
+                   help="multi-card latency sharding (not ported yet)")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -152,6 +164,13 @@ def write_png(path, img):
                 + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
+def chunk_generator(seed: int, start: int) -> torch.Generator:
+    """The CPU generator of the per-step noise of the batch of jobs that
+    starts at job ``start``: seeded by (seed, start)."""
+    s = int(np.random.SeedSequence([seed, 1, start]).generate_state(1, np.uint64)[0])
+    return torch.Generator().manual_seed(s & (2**63 - 1))
+
+
 def job_noise(seed, job, latent):
     """The initial latent draws of one job, (latent, latent, 4) f32, from a
     generator seeded by (seed, job): an image does not depend on --batch."""
@@ -170,6 +189,9 @@ def main(argv=None, *, callback=None):
     poses: {"paths", "images" (uint8 (b, H, W, 3)), "sample_s", "decode_s",
     "seconds"}."""
     args = build_parser().parse_args(argv)
+    if args.latency_shard:
+        raise NotImplementedError("--latency_shard (CFG-row and view sharding across cards) is "
+                                  "not ported yet (ROADMAP.md Queue 1 item 4, parallelism)")
     device = resolve_device(args.device)
     cfg = EngineConfig(compute_dtype=args.dtype,
                        unet=UNetConfig(nerf_dtype=args.dtype, nerf_chunk_size=args.nerf_chunk))
@@ -277,6 +299,7 @@ def main(argv=None, *, callback=None):
         t0 = time.perf_counter()
         z = eng.sample(params, c, uc, guider, noise=noise, cams=cams, references=references,
                        choices=choices if references else None, num_steps=args.num_steps,
+                       sampler=args.sampler, draws=Draws(chunk_generator(args.seed, start)),
                        callback=callback, shared_target_cams=True)
         _sync(device)
         t1 = time.perf_counter()

@@ -15,9 +15,13 @@ weights needed). Without ``--base_ckpt`` the weights are random from
 ``--seed``. Each step's draws come from a generator seeded by (seed, step),
 so a resumed run continues as the uninterrupted one would.
 
-Not ported yet, and refused: ``--sample_every`` / ``--log_steps_increase``
-(they need ``Engine.log_images`` and the live-reference ``Engine.sample``,
-ROADMAP.md Queue 1 item 1) and ``--multihost`` with its ``--coordinator``,
+``--sample_every N`` writes preview grids (``Engine.log_images``: inputs,
+reconstructions, an 8-step live-reference sample, the FeatureNeRF's
+predicted RGB and foreground masks, and the prompts as ``conditioning``) to
+``images/<name>_<step:06d>.png`` at every step that is a multiple of N,
+and with ``--log_steps_increase`` also at the powers of two up to N.
+
+Not ported yet, and refused: ``--multihost`` with its ``--coordinator``,
 ``--num_processes`` and ``--process_id`` (ROADMAP.md Queue 1 item 4).
 """
 from __future__ import annotations
@@ -71,9 +75,9 @@ def build_parser():
     p.add_argument("--full_ckpt_every", type=int, default=0,
                    help="full training-state checkpoint interval (0 = final only)")
     p.add_argument("--sample_every", type=int, default=0,
-                   help="image grids every N steps (not ported yet)")
+                   help="write input/recon/sample image grids every N steps")
     p.add_argument("--log_steps_increase", action="store_true",
-                   help="image grids at power-of-two early steps (not ported yet)")
+                   help="also write grids at the power-of-two steps up to --sample_every")
     p.add_argument("--val_every", type=int, default=0,
                    help="log a validation loss every N steps")
     p.add_argument("--multihost", action="store_true", help="multi-host run (not ported yet)")
@@ -91,15 +95,20 @@ def build_parser():
 
 
 def _refuse_unported(args):
-    if args.sample_every or args.log_steps_increase:
-        raise NotImplementedError(
-            "--sample_every / --log_steps_increase need Engine.log_images and the "
-            "live-reference Engine.sample, not ported yet (ROADMAP.md Queue 1 item 1)")
     if (args.multihost or args.coordinator is not None or args.num_processes is not None
             or args.process_id is not None):
         raise NotImplementedError(
             "--multihost (--coordinator, --num_processes, --process_id) is not ported yet "
             "(ROADMAP.md Queue 1 item 4, parallelism)")
+
+
+def log_images_now(step: int, sample_every: int, increase: bool) -> bool:
+    """The preview schedule: steps > 0 that are multiples of
+    ``sample_every``, plus, with ``increase``, the powers of two up to it."""
+    if not sample_every or not step:
+        return False
+    return step % sample_every == 0 or (increase and step <= sample_every
+                                        and step & (step - 1) == 0)
 
 
 def step_generator(seed: int, step: int, device, stream: int = 0) -> torch.Generator:
@@ -115,7 +124,9 @@ def _sync(device):
 
 def main(argv=None):
     """Run the CLI. Returns a summary: {"output_dir", "steps": [{"step",
-    "step_s", "data_s"}], "capture_s", "delta", "cameras"}."""
+    "step_s", "data_s"}], "grids": [{"step", "seconds", "paths"}] (the
+    preview grids and the wall time of their log_images call),
+    "capture_s", "delta", "cameras"}."""
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
@@ -123,7 +134,7 @@ def main(argv=None):
     from ..engine import Engine, EngineConfig
     from ..train.checkpoint import latest_checkpoint, restore_train_state, save_train_state
     from ..train.ema import ema_init, ema_swap, ema_update
-    from ..train.logging import MetricsLogger
+    from ..train.logging import MetricsLogger, render_text_image, save_image_grid
     from ..train.trainer import TrainConfig, Trainer, tree_map
     from ..utils.config import apply_overrides, config_to_dict, load_config
     from .sample import SMOKE_CFG, make_tokenizers
@@ -225,7 +236,7 @@ def main(argv=None):
                           run_name=args.name)
     profile_dir = os.path.join(args.output_dir, "profile")
     prof = None
-    steps = []
+    steps, grids = [], []
     t_start = time.time()
     try:
         for step in range(state.step, args.max_steps):
@@ -235,7 +246,7 @@ def main(argv=None):
             t0 = time.perf_counter()
             batch = next(train_iter)
             data_s = time.perf_counter() - t0
-            batch.pop("txt", None)
+            txts = batch.pop("txt", None)
             batch.pop("txt_ref", None)
             meter.tic()
             state, metrics = trainer.train_step(
@@ -271,6 +282,21 @@ def main(argv=None):
                 _save_delta(args, state.params, None, cfg, tag=f"step{step}")
             if args.full_ckpt_every and step and step % args.full_ckpt_every == 0:
                 save_train_state(ckpt_dir, state, ema=ema)
+            if log_images_now(step, args.sample_every, args.log_steps_increase):
+                t0 = time.perf_counter()
+                images = eng.log_images(state.params, batch, Draws(
+                    step_generator(args.seed, step, device, stream=3)), num_steps=8)
+                images = {k: v.cpu().numpy() for k, v in images.items()}
+                log_s = time.perf_counter() - t0
+                if txts:
+                    images["conditioning"] = render_text_image(txts)
+                paths = []
+                for name, imgs in images.items():
+                    paths.append(save_image_grid(
+                        os.path.join(args.output_dir, "images", f"{name}_{step:06d}.png"), imgs))
+                    meter.log_images(step, name, paths[-1])
+                grids.append({"step": step, "seconds": log_s, "paths": paths})
+                print(f"step {step}: {len(paths)} image grids in {log_s:.2f}s", flush=True)
     except KeyboardInterrupt:
         print("interrupted: writing last checkpoint", flush=True)
         save_train_state(ckpt_dir, state, ema=ema)
@@ -298,7 +324,8 @@ def main(argv=None):
         capture_s = time.perf_counter() - t0
     delta = _save_delta(args, params, references, cfg, tag="last")
     print(f"delta checkpoint written to {args.output_dir}", flush=True)
-    return {"output_dir": args.output_dir, "steps": steps, "capture_s": capture_s,
+    return {"output_dir": args.output_dir, "steps": steps, "grids": grids,
+            "capture_s": capture_s,
             "delta": delta,
             "cameras": None if capture_data is None else
             os.path.join(args.output_dir, "cameras.npz")}

@@ -1,14 +1,18 @@
-"""EDM-preconditioned discrete denoiser, inference path (port of
-custom_diffusion360_tpu/diffusion/denoiser.py with SDXL's settings: eps
-scaling, 1000-step LegacyDDPM grid, quantized c_noise):
+"""EDM-preconditioned denoiser (port of custom_diffusion360_tpu/diffusion/
+denoiser.py):
 
     D(x, sigma) = network(x * c_in, c_noise, cond) * c_out + x * c_skip
 
-with sigma quantized to the nearest entry of the grid and c_noise the grid
-index (first index on ties, as jnp.argmin). In training the reference
-latents are noised here a second time with ``sigmas_ref`` (on top of the
-loss's noising: the reference implementation's double noising, kept for
-parity), c_in-scaled, and their sigmas quantized to grid indices.
+with (c_skip, c_out, c_in) from the configured scaling ("eps", "edm" or
+"v"). The discrete denoiser (``discrete=True``, SDXL's) quantizes sigma to
+the nearest entry of a ``num_idx``-step LegacyDDPM grid and, with
+``quantize_c_noise``, hands the network the grid index (first index on
+ties, as jnp.argmin); otherwise the network gets sigma itself, as in the
+JAX package. The reference latents, when given with ``sigmas_ref``, are
+c_in-scaled here by the same scaling, with their sigmas quantized the same
+way; in training they are first noised a second time with ``noise_ref`` (on
+top of the loss's noising: the reference implementation's double noising,
+kept for parity).
 """
 from __future__ import annotations
 
@@ -18,16 +22,13 @@ from typing import Callable
 import torch
 
 from .discretization import legacy_ddpm_sigmas
-from .scaling import eps_scaling, eps_weighting
+from .scaling import get_scaling, get_weighting
 
 NUM_IDX = 1000
 
 
 @dataclasses.dataclass(frozen=True)
 class DenoiserConfig:
-    """The JAX package's denoiser settings, so its config files load; the
-    port implements these values only (``Engine`` refuses others)."""
-
     scaling: str = "eps"
     weighting: str = "eps"
     discrete: bool = True
@@ -40,38 +41,49 @@ def _append_dims(x, ndim):
 
 
 class Denoiser:
-    def __init__(self, device="cpu"):
+    def __init__(self, cfg: DenoiserConfig = DenoiserConfig(), device="cpu"):
+        self.cfg = cfg
+        self.scaling = get_scaling(cfg.scaling)
+        self.weighting = get_weighting(cfg.weighting)
         # ascending grid without zero
-        self.sigmas = legacy_ddpm_sigmas(NUM_IDX, device=device, append_zero=False, flip=True)
+        self.sigmas = (legacy_ddpm_sigmas(cfg.num_idx, device=device, append_zero=False,
+                                          flip=True) if cfg.discrete else None)
 
     def sigma_to_idx(self, sigma):
         # torch.argmin returns the first minimal index, like jnp.argmin
         return torch.argmin((sigma[..., None] - self.sigmas.to(sigma.device)).abs(), dim=-1)
 
     def quantize_sigma(self, sigma):
+        if self.sigmas is None:
+            return sigma
         return self.sigmas.to(sigma.device)[self.sigma_to_idx(sigma)]
 
+    def quantize_c_noise(self, c_noise):
+        if self.sigmas is None or not self.cfg.quantize_c_noise:
+            return c_noise
+        return self.sigma_to_idx(c_noise).float()
+
     def w(self, sigma):
-        """Loss weight of the eps parameterization, sigma^-2."""
-        return eps_weighting(sigma)
+        """The training loss weight of the configured weighting."""
+        return self.weighting(sigma)
 
     def __call__(self, network: Callable, x, sigma, cond, *, input_ref=None,
                  sigmas_ref=None, noise_ref=None, **kwargs):
         """network(x_scaled, c_noise, cond, **kw) -> (pred, aux); returns
-        (denoised, aux). x: (B, H, W, C); sigma: (B,). Training: input_ref
-        (B, N, H, W, C) with sigmas_ref (B,), plus ``noise_ref`` (standard
-        normal draws of input_ref's shape) for the second noising; the
-        network then gets input_ref and sigmas_ref (as grid indices)."""
+        (denoised, aux). x: (B, H, W, C); sigma: (B,). input_ref (B, N, H,
+        W, C) reference latents with sigmas_ref (B,), plus in training
+        ``noise_ref`` (standard normal draws of input_ref's shape) for the
+        second noising; the network then gets input_ref and sigmas_ref (as
+        grid indices when quantized)."""
         if input_ref is not None:
             if sigmas_ref is not None:
                 sr = _append_dims(sigmas_ref, input_ref.dim())
                 if noise_ref is not None:
                     input_ref = input_ref + noise_ref * sr
-                input_ref = input_ref * eps_scaling(sr)[2]
-                sigmas_ref = self.sigma_to_idx(sigmas_ref).float()
+                input_ref = input_ref * self.scaling(sr)[2]
+                sigmas_ref = self.quantize_c_noise(sigmas_ref)
             kwargs.update(input_ref=input_ref, sigmas_ref=sigmas_ref)
         sigma = self.quantize_sigma(sigma)
-        c_skip, c_out, c_in, _ = eps_scaling(_append_dims(sigma, x.dim()))
-        c_noise = self.sigma_to_idx(sigma).float()
-        pred, aux = network(x * c_in, c_noise, cond, **kwargs)
+        c_skip, c_out, c_in, _ = self.scaling(_append_dims(sigma, x.dim()))
+        pred, aux = network(x * c_in, self.quantize_c_noise(sigma), cond, **kwargs)
         return pred * c_out + x * c_skip, aux

@@ -35,3 +35,32 @@ def legacy_ddpm_sigmas_np(n: int, *, num_timesteps: int = 1000,
 def legacy_ddpm_sigmas(n: int, device="cpu", **kwargs) -> torch.Tensor:
     return torch.from_numpy(legacy_ddpm_sigmas_np(n, **kwargs)).to(device)
 
+
+def edm_sigmas_np(n: int, *, sigma_min: float = 0.002, sigma_max: float = 80.0,
+                  rho: float = 7.0, append_zero: bool = True, flip: bool = False) -> np.ndarray:
+    """Karras rho-schedule -> float32 sigma grid, descending (with a
+    trailing 0 when ``append_zero``); ``flip`` reverses it."""
+    ramp = np.linspace(0, 1, n, dtype=np.float64)
+    min_inv_rho = sigma_min ** (1 / rho)
+    max_inv_rho = sigma_max ** (1 / rho)
+    sigmas = ((max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** rho).astype(np.float32)
+    if append_zero:
+        sigmas = np.concatenate([sigmas, np.zeros((1,), np.float32)])
+    if flip:
+        sigmas = sigmas[::-1]
+    return sigmas.copy()
+
+
+def edm_sigmas(n: int, device="cpu", **kwargs) -> torch.Tensor:
+    return torch.from_numpy(edm_sigmas_np(n, **kwargs)).to(device)
+
+
+def make_sigmas(kind: str, n: int, device="cpu", **kwargs) -> torch.Tensor:
+    """The schedule by name: "legacy_ddpm" (or "LegacyDDPMDiscretization")
+    or "edm" (or "EDMDiscretization")."""
+    if kind in ("legacy_ddpm", "LegacyDDPMDiscretization"):
+        return legacy_ddpm_sigmas(n, device, **kwargs)
+    if kind in ("edm", "EDMDiscretization"):
+        return edm_sigmas(n, device, **kwargs)
+    raise ValueError(f"unknown discretization {kind!r}")
+

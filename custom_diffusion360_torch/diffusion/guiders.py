@@ -104,3 +104,30 @@ class scheduled_cfg_img_text_ref:
         and sigma), so the UNet may run that prefix on the two unique
         copies and expand (models/unet.py ``prefix_dedupe``)."""
         return (0, 0, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class linear_prediction_guider:
+    """[uc | c] doubling with a per-frame scale ramped linearly from
+    ``min_scale`` to ``max_scale`` over ``num_frames`` (video-style); the
+    batch holds B // num_frames clips of num_frames frames each."""
+
+    max_scale: float
+    num_frames: int
+    min_scale: float = 1.0
+
+    def prepare(self, x, s, c, uc):
+        c_out = {k: torch.cat([uc[k], c[k]]) if k in _COND_KEYS else c[k] for k in c}
+        return torch.cat([x, x]), torch.cat([s, s]), c_out
+
+    def combine(self, x, sigma):
+        x_u, x_c = x.chunk(2)
+        t = self.num_frames
+        scale = torch.linspace(self.min_scale, self.max_scale, t, dtype=torch.float32,
+                               device=x.device).repeat(x_u.shape[0] // t)
+        scale = scale.reshape((-1,) + (1,) * (x_u.dim() - 1)).to(x_u.dtype)
+        return x_u + scale * (x_c - x_u)
+
+    @property
+    def num_copies(self):
+        return 2

@@ -1,6 +1,7 @@
 """Training metrics and image grids (port of custom_diffusion360_tpu/train/
 logging.py): a step-time and images/min meter writing ``metrics.csv``,
-the device's memory counters, and a PNG grid writer."""
+the device's memory counters, a PNG grid writer and the prompts rendered
+as images (Pillow)."""
 from __future__ import annotations
 
 import csv
@@ -103,6 +104,22 @@ class MetricsLogger:
         if self._file is not None:
             self._file.close()
             self._file = self._writer = None
+
+
+def render_text_image(texts, size: int = 256):
+    """The prompts ``texts`` drawn in black on white with Pillow's default
+    font, wrapped every size / 8 characters -> (N, size, size, 3) f32 in
+    [-1, 1]."""
+    from PIL import Image, ImageDraw
+
+    out = []
+    for txt in texts:
+        img = Image.new("RGB", (size, size), "white")
+        nc = max(int(size / 8), 1)
+        lines = "\n".join(txt[i: i + nc] for i in range(0, len(txt), nc))
+        ImageDraw.Draw(img).text((4, 4), lines, fill="black")
+        out.append(np.asarray(img, np.float32) / 127.5 - 1.0)
+    return np.stack(out)
 
 
 def save_image_grid(path: str, images, nrow: int = 4):

@@ -13,6 +13,9 @@ from custom_diffusion360_tpu.ops import attention as jat
 from custom_diffusion360_torch.ops import attention as tat
 from custom_diffusion360_torch.ops import block_attention as tba
 from tests.test_torch_common import max_err, t
+from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 TOL = 2e-5
 

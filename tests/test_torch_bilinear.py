@@ -13,6 +13,9 @@ from custom_diffusion360_tpu.ops.grid_sample import grid_sample_2d as j_grid_sam
 from custom_diffusion360_torch.ops.grid_sample import grid_sample_2d
 from custom_diffusion360_torch.ops.onehot_sample import bilinear_sample
 from tests.test_torch_common import max_err, t
+from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 TOL = 1e-5
 

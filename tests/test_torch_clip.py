@@ -16,6 +16,9 @@ from custom_diffusion360_tpu.models import conditioner as jcond
 from custom_diffusion360_torch.models import clip as tclip
 from custom_diffusion360_torch.models import conditioner as tcond
 from tests.test_torch_common import max_err, random_params, t, to_torch
+from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 VOCAB, T = 64, 16
 L_CFG = dict(vocab_size=VOCAB, width=48, layers=1, heads=4, context_length=T)

@@ -35,6 +35,19 @@ TINY_UNET = dict(
 TINY_VAE = dict(ch=16, ch_mult=(1, 2), num_res_blocks=1)
 
 
+@pytest.fixture(scope="module")
+def torch_threads():
+    """One intra-op thread for a module's torch work, restored after it.
+    Tier-1 runs six pytest workers on the machine's cores, and torch's
+    default of one thread a core in every worker oversubscribes them: each
+    small op then waits for threads that are not scheduled (one 1 s CLI
+    test took 175 s inside the suite)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def random_params(init_fn, seed=0):
     """numpy params with the structure of ``init_fn(key)``: weights
     N(0, 1/fan_in), biases N(0, 0.1^2), norm scales 1 + N(0, 0.1^2)."""

@@ -21,6 +21,9 @@ import custom_diffusion360_torch.models.vae as tvae
 from custom_diffusion360_tpu.ops import conv3x3 as jconv
 from custom_diffusion360_torch.ops import conv3x3 as tconv
 from tests.test_torch_common import max_err, random_params, t, to_torch
+from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 TOL = 1e-4
 

@@ -27,6 +27,9 @@ from custom_diffusion360_torch.models.unet import UNetConfig
 from custom_diffusion360_torch.models.vae import VAEConfig
 from tests.test_cameras import random_cameras
 from tests.test_torch_common import TINY_UNET, TINY_VAE, max_err, random_params, t, to_torch
+from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 B, NREF, LAT, STEPS = 1, 2, 8, 3
 

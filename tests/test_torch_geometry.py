@@ -14,6 +14,9 @@ from custom_diffusion360_torch.ops.sample_pdf import sample_pdf
 from custom_diffusion360_torch.ops.volume_render import volume_render
 from tests.test_cameras import random_cameras
 from tests.test_torch_common import max_err, t
+from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 TOL = 2e-5
 

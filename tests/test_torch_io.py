@@ -29,6 +29,9 @@ from custom_diffusion360_torch.models.vae import VAEConfig
 from tests.test_cameras import random_cameras
 from tests.test_io import _conv_sd, _lin_sd, _norm_sd, make_unet_sd
 from tests.test_torch_common import TINY_UNET, TINY_VAE, random_params, to_torch
+from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 CLIP_KW = dict(vocab_size=32, width=16, layers=2, heads=2, context_length=8)
 OPEN_KW = dict(CLIP_KW, act="gelu", text_projection=True)

@@ -12,6 +12,9 @@ from custom_diffusion360_torch.geometry.cameras import Cameras
 from custom_diffusion360_torch.models import nerf as tnerf
 from tests.test_cameras import random_cameras
 from tests.test_torch_common import max_err, random_params, t, to_torch
+from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 B, NREF, DIM = 2, 3, 24
 KEYS = ("features", "sigma", "dists", "rgb", "sigma_uniform", "dists_uniform")

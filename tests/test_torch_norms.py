@@ -23,6 +23,9 @@ from custom_diffusion360_tpu.models import nn as jnn
 from custom_diffusion360_torch.models import nn as tnn
 from custom_diffusion360_torch.ops import norms as tnorms
 from tests.test_torch_common import max_err, t
+from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 TOL = 2e-5
 GRAD_TOL = 1e-5  # of max|g|

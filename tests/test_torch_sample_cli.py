@@ -47,6 +47,9 @@ from custom_diffusion360_torch.models.unet import attn_block_meta as t_attn_bloc
 from custom_diffusion360_torch.models.vae import VAEConfig
 from tests.test_cameras import random_cameras
 from tests.test_torch_common import TINY_UNET, TINY_VAE, max_err, random_params, t, to_torch
+from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 B, NREF, LAT, STEPS, CTX = 1, 2, 8, 3, 16
 TOK = make_test_tokenizer(["photo", "of", "a", "car"], additional_special_tokens=("<new1>",),
@@ -244,3 +247,69 @@ def test_cli_refuses_cuda_without_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["--smoke", "--num_images", "1"])
+
+
+def test_cli_flags_match_jax():
+    from custom_diffusion360_tpu.cli import sample as jcli
+
+    def flags(parser):
+        return {a.dest: (a.default, a.choices) for a in parser._actions if a.dest != "help"}
+
+    want, got = flags(jcli.build_parser()), flags(cli.build_parser())
+    assert set(got) - set(want) == {"device", "config"}
+    assert {k: got[k] for k in want} == want
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 4"):
+        cli.main(["--smoke", "--device", "cpu", "--latency_shard"])
+
+
+DETERMINISTIC = ("euler_edm", "heun_edm", "dpmpp2m", "lms")
+
+
+@pytest.mark.parametrize("sampler", ["euler_edm", "heun_edm", "euler_ancestral",
+                                     "dpmpp2s_ancestral", "dpmpp2m", "lms"])
+def test_cli_sampler_writes_pngs(sampler, tmp_path):
+    """Each --sampler writes its images; a deterministic sampler's images do
+    not depend on --batch (per-job noise), an ancestral sampler's repeat
+    for a fixed --batch (per-chunk step noise from --seed)."""
+    delta = str(tmp_path / "delta.npz")
+    _smoke_delta(delta)
+    common = ["--smoke", "--device", "cpu", "--dtype", "float32", "--num_steps", "3",
+              "--num_images", "2", "--resolution", "64", "--num_ref", "2", "--delta_ckpt", delta,
+              "--sampler", sampler, "--seed", "4"]
+    rec1 = cli.main(common + ["--output_dir", str(tmp_path / "b1")])
+    assert sorted(os.listdir(tmp_path / "b1")) == ["sample_00_00.png", "sample_01_00.png"]
+    img1 = np.concatenate([r["images"] for r in rec1])
+    assert img1.shape == (2, 64, 64, 3) and img1.std() > 0
+    if sampler in DETERMINISTIC:
+        rec2 = cli.main(common + ["--output_dir", str(tmp_path / "b2"), "--batch", "2"])
+        diff = np.abs(np.concatenate([r["images"] for r in rec2]).astype(int) - img1)
+        assert diff.max() <= 1 and diff.mean() < 1e-3
+    else:
+        again = cli.main(common + ["--output_dir", str(tmp_path / "again")])
+        np.testing.assert_array_equal(np.concatenate([r["images"] for r in again]), img1)
+        other = cli.main(common[:-1] + ["5", "--output_dir", str(tmp_path / "seed5")])
+        assert not np.array_equal(np.concatenate([r["images"] for r in other]), img1)
+
+
+def test_cli_overrides_reach_the_sampler(tmp_path, monkeypatch):
+    """--override discretization_name=edm and sampler.* configure the
+    engine's sampler; the churned Euler run draws per-step noise."""
+    seen = []
+    orig = Engine.sample
+
+    def spy(self, *a, **kw):
+        seen.append((self.cfg.discretization_name, self.cfg.sampler.s_churn, kw["sampler"]))
+        return orig(self, *a, **kw)
+
+    monkeypatch.setattr(Engine, "sample", spy)
+    delta = str(tmp_path / "delta.npz")
+    _smoke_delta(delta)
+    common = ["--smoke", "--device", "cpu", "--dtype", "float32", "--num_steps", "3",
+              "--num_images", "1", "--resolution", "64", "--num_ref", "2", "--delta_ckpt", delta]
+    plain = cli.main(common + ["--output_dir", str(tmp_path / "a")])
+    churned = cli.main(common + ["--output_dir", str(tmp_path / "b"), "--override",
+                                 "discretization_name=edm", "--override", "sampler.s_churn=1.5",
+                                 "--override", "sampler.s_tmax=100"])
+    assert seen == [("legacy_ddpm", 0.0, "euler_edm"), ("edm", 1.5, "euler_edm")]
+    assert churned[0]["images"].std() > 0
+    assert not np.array_equal(churned[0]["images"], plain[0]["images"])

@@ -43,6 +43,9 @@ from custom_diffusion360_torch.models.unet import UNetConfig
 from custom_diffusion360_torch.train import trainer as ttrainer
 from tests.test_cameras import random_cameras
 from tests.test_torch_common import max_err, random_params, t, to_torch
+from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 B, N, RES = 1, 2, 64  # image 64^2 -> latent 8^2
 VOCAB = 64

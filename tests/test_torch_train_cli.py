@@ -57,6 +57,9 @@ from custom_diffusion360_torch.utils import config as tconfig
 from tests.test_data import make_synthetic_co3d
 from tests.test_torch_common import max_err, random_params, t, to_torch
 from tests.test_torch_train import RES, _batch, _cfgs, _tcams, replay_draws
+from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 REL_TOL = 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,20 +92,25 @@ def test_config_file_and_overrides_match_jax():
 
     path = os.path.join(REPO, "configs", "train_co3d_concept.yaml")
     over = ["unet.num_samples=16", "unet.image_cross_blocks=[0, 2]", "loss.loss_fg_lambda=5",
-            "compute_dtype=bfloat16"]
+            "compute_dtype=bfloat16", "sampler.s_churn=0.5", "sampler.order=3",
+            "sampler_name=heun_edm", "discretization_name=edm", "denoiser.discrete=false"]
     got = tconfig.config_to_dict(tconfig.load_config(EngineConfig(), path, over))
     want = jconfig.config_to_dict(jconfig.load_config(JEngineConfig(), path, over))
     for section in ("unet", "loss", "denoiser"):
         for k, v in got[section].items():
             if k in want[section]:
                 assert v == want[section][k], (section, k)
+    assert got["sampler"] == want["sampler"] and got["sampler"]["s_churn"] == 0.5
+    for k in ("sampler_name", "discretization_name", "num_sample_steps", "compute_dtype"):
+        assert got[k] == want[k], k
     assert got["compute_dtype"] == "bfloat16" and got["unet"]["image_cross_blocks"] == [0, 2]
     cfg = tconfig.apply_overrides(EngineConfig(), ["loss.loss_rgb_lambda=1e-4"])
     assert cfg.loss.loss_rgb_lambda == 1e-4  # YAML 1.1's string, read into a float field
     with pytest.raises(KeyError, match="unknown config field"):
         tconfig.apply_overrides(EngineConfig(), ["unet.no_such_field=1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(tconfig.apply_overrides(EngineConfig(), ["denoiser.scaling=v"]), device="cpu")
+    # every DenoiserConfig is taken now (the v scaling here)
+    eng = Engine(tconfig.apply_overrides(EngineConfig(), ["denoiser.scaling=v"]), device="cpu")
+    assert eng.denoiser.cfg.scaling == "v" and eng.denoiser.scaling.__name__ == "v_scaling"
 
 
 # ---------------------------------------------------------------------------
@@ -523,12 +531,69 @@ def test_train_cli_profiles_steps_and_rewrites_nothing_on_resume(tmp_path):
     assert res["steps"] == []  # the checkpoint is at step 11 already
 
 
-@pytest.mark.parametrize("flags", [["--sample_every", "1"], ["--log_steps_increase"],
+@pytest.mark.parametrize("flags", [["--num_processes", "2"], ["--process_id", "0"],
                                    ["--multihost"], ["--coordinator", "localhost:1234"]],
-                         ids=["sample_every", "log_steps_increase", "multihost", "coordinator"])
+                         ids=["num_processes", "process_id", "multihost", "coordinator"])
 def test_train_cli_refuses_unported_flags(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item [14]"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 4"):
         tcli.main(["--smoke", "--device", "cpu", "--output_dir", str(tmp_path), *flags])
+
+
+@pytest.mark.parametrize("every,increase", [(0, True), (1, False), (4, False), (4, True),
+                                            (6, True), (10, True)])
+def test_preview_schedule_matches_jax(every, increase):
+    """The JAX CLI's inline schedule (custom_diffusion360_tpu/cli/train.py)."""
+    def jax_log_now(step):
+        return bool(every and step and (step % every == 0 or (
+            increase and step <= every and (step & (step - 1)) == 0)))
+
+    for step in range(40):
+        assert tcli.log_images_now(step, every, increase) == jax_log_now(step), step
+    if every == 10 and increase:
+        assert [s for s in range(25) if tcli.log_images_now(s, every, increase)] == [
+            1, 2, 4, 8, 10, 20]
+
+
+def test_render_text_image_matches_jax():
+    from custom_diffusion360_tpu.train import logging as jlog
+
+    texts = ["photo of a <new1> car", "", "a very long prompt " * 8, "ß ü € 123"]
+    want = jlog.render_text_image(texts)
+    got = tlog.render_text_image(texts)
+    assert got.shape == (4, 256, 256, 3) and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert got[0].min() < 0.0 and got[1].min() == 1.0  # text drawn; the empty prompt blank
+    np.testing.assert_array_equal(tlog.render_text_image(["x"], size=64),
+                                  jlog.render_text_image(["x"], size=64))
+
+
+def test_train_cli_writes_preview_grids_on_co3d(tmp_path):
+    """--sample_every 1 --log_steps_increase on the synthetic CO3D tree:
+    every step after step 0 writes its grids, the prompts included."""
+    root = make_synthetic_co3d(tmp_path / "co3d")
+    _tiny_yaml(tmp_path / "tiny.yaml")
+    out = tmp_path / "run"
+    res = tcli.main(["--data_root", root, "--category", "car", "--config",
+                     str(tmp_path / "tiny.yaml"), "--output_dir", str(out), "--img_size", "64",
+                     "--num_images", "3", "--max_steps", "3", "--device", "cpu",
+                     "--sample_every", "1", "--log_steps_increase", "--ckpt_every", "0"])
+    names = ["inputs", "reconstructions", "samples", "predicted_rgb_0", "fg_mask_0",
+             "conditioning"]
+    assert [g["step"] for g in res["grids"]] == [1, 2]
+    want = sorted(f"{n}_{s:06d}.png" for n in names for s in (1, 2))
+    assert sorted(os.listdir(out / "images")) == want
+    from PIL import Image
+
+    for g in res["grids"]:
+        assert g["seconds"] > 0 and len(g["paths"]) == len(names)
+        for path in g["paths"]:
+            img = np.asarray(Image.open(path))
+            assert img.ndim == 3 and img.shape[2] == 3
+            name = os.path.basename(path).rsplit("_", 1)[0]
+            side = {"conditioning": 256, "predicted_rgb_0": 4, "fg_mask_0": 4}.get(name, 64)
+            assert img.shape[:2] == (side, side), path  # batch 1: one tile
+    samples = np.asarray(Image.open(out / "images" / "samples_000002.png"))
+    assert samples.std() > 0
 
 
 def test_train_cli_flags_match_jax():

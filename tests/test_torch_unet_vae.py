@@ -21,6 +21,9 @@ from custom_diffusion360_torch.models.nerf import CompactRefTokens
 from custom_diffusion360_torch.models.transformer import fuse_attention_params as tfuse
 from tests.test_cameras import random_cameras
 from tests.test_torch_common import TINY_UNET, TINY_VAE, max_err, random_params, t, to_torch
+from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 B, NREF, LAT = 2, 2, 8
 
