@@ -69,6 +69,16 @@ Phases:
      step; then Engine.samplemulti, 2 views of a 512^2 window, 4 steps,
      decoded. Counters zeroed before the first run and read after
      samplemulti (path "samplers");
+  5d. parallelism (custom_diffusion360_torch.parallel) in a one-rank NCCL
+     world: the training CLI at the [train-cli] configuration for 2 steps,
+     plain and under --multihost (the group comes up there), losses within
+     1e-3 relative; the sampling CLI at the [cli] configuration for 4
+     steps, plain and with --latency_shard, images within 1 of 255;
+     Engine.sample at the [main] configuration for 4 steps on
+     tensor-parallel slices (the world as the model group) and with the
+     CFG rows over the world (cfg_group), latents within 1e-3 of
+     max|plain|. Counters zeroed before the first run and read after the
+     last (path "parallel"); the group is destroyed after it;
   6. small configurations run twice, on the card through the kernels (bf16)
      and on the CPU through the plain versions (f32): a 3-step sample +
      decode, whose latent and image must agree, a 3-step x3 CLI sample
@@ -1652,6 +1662,248 @@ def run_samplemulti(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 5d: parallelism in a one-rank NCCL world
+# ---------------------------------------------------------------------------
+
+PARALLEL_TRAIN_STEPS, PARALLEL_SAMPLE_STEPS = 2, 4
+PARALLEL_LOSS_RTOL = 1e-3  # losses of the --multihost run against the plain run
+# the tensor-parallel and cfg_group latents in a world of one against the
+# plain one, as a share of max|plain| (both are the plain arithmetic there)
+PARALLEL_LATENT_RTOL = 1e-3
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_engine_cfg():
+    """[main]'s configuration: full-width SDXL, bf16, ray chunk 4096."""
+    from custom_diffusion360_torch.engine import EngineConfig
+    from custom_diffusion360_torch.models.unet import UNetConfig
+
+    return EngineConfig(unet=UNetConfig(nerf_dtype="bfloat16", nerf_chunk_size=4096),
+                        compute_dtype="bfloat16")
+
+
+def time_grad_allreduce(torch, leaves, dev, calls=10):
+    """The trainer's gradient all-reduce (parallel.all_reduce_mean over the
+    trainable leaves, one flat bucket) on copies of ``leaves``, in the
+    world that is up: the median of ``calls`` timed calls after two
+    warm-ups (CUDA events on the card)."""
+    from custom_diffusion360_torch.parallel import all_reduce_mean
+
+    grads = [leaf.detach().clone() for leaf in leaves]
+    times = []
+    for i in range(calls + 2):
+        if dev == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            all_reduce_mean(grads)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            all_reduce_mean(grads)
+            ms = (time.perf_counter() - t0) * 1e3
+        if i >= 2:
+            times.append(ms)
+    values = sum(g.numel() for g in grads)
+    nbytes = sum(g.numel() * g.element_size() for g in grads)
+    return {"values": values, "bytes": nbytes, "ms": statistics.median(times), "calls": calls,
+            "ring4_bytes_per_rank": 2 * 3 / 4 * nbytes}
+
+
+def run_parallel_path(torch, counters, dev="cuda"):
+    """custom_diffusion360_torch.parallel on the card, in a one-rank NCCL
+    world (MASTER_ADDR, MASTER_PORT, RANK=0, WORLD_SIZE=1 set here):
+    1. cli.train.main at the [train-cli] configuration (the synthetic CO3D
+       tree, 512^2, 1 + 4 views, --seed 23) for PARALLEL_TRAIN_STEPS steps,
+       plain and then under --multihost --coordinator localhost:<port>
+       --num_processes 1 --process_id 0 (the group comes up there: NCCL,
+       the gradient all-reduce, the replicate check, the view-sharded
+       capture's all-gather, the rank-0 gates); the losses must agree within
+       PARALLEL_LOSS_RTOL; each run's step times are printed, and the
+       gradient all-reduce of the trainable leaves is timed on its own;
+    2. cli.sample.main at the [cli] configuration (1024^2, x3, 8 views, both
+       switches) for PARALLEL_SAMPLE_STEPS steps, plain and with
+       --latency_shard; the images must agree within 1 of 255;
+    3. Engine.sample at the [main] configuration for PARALLEL_SAMPLE_STEPS
+       steps: plain, on tensor-parallel slices with the world as the model
+       group (every to_out and ff out through an all-reduce), and with the
+       CFG rows over the world (cfg_group, the latency path's all-gather);
+       each latent within PARALLEL_LATENT_RTOL of max|plain|.
+    The counters are zeroed just before step 1 and read after step 3; the
+    process group is destroyed at the end. Returns (launches, by_shape)."""
+    import csv
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from custom_diffusion360_torch.cli import sample as cli_sample
+    from custom_diffusion360_torch.cli import train as cli_train
+    from custom_diffusion360_torch.diffusion.guiders import vanilla_cfg_img_ref
+    from custom_diffusion360_torch.engine import Engine
+    from custom_diffusion360_torch.models.unet import UNetConfig
+    from custom_diffusion360_torch.parallel import shard_params_tp, tensor_parallel
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved_env = {k: os.environ.get(k) for k in list(env) + list(CLI_SWITCHES)}
+    os.environ.update(env)
+    t_phase = time.time()
+    problems = []
+    report = {}
+    for c in counters.values():
+        c.launches = 0
+        c.launches_by_shape.clear()
+    orig_init = patch_init_params(torch, on_cpu=False)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            root = write_co3d_tree(os.path.join(d, "co3d"))
+            base = ["--data_root", root, "--category", "car", "--seed", str(TRAIN_CLI_SEED),
+                    "--img_size", "512", "--num_images", "5", "--batch_size", "1",
+                    "--max_steps", str(PARALLEL_TRAIN_STEPS), "--log_every", "1",
+                    "--device", dev, "--override", "compute_dtype=bfloat16"]
+            runs = {}
+            for tag, extra in (("plain", []), ("multihost", [
+                    "--multihost", "--coordinator", f"localhost:{free_port()}",
+                    "--num_processes", "1", "--process_id", "0"])):
+                out = os.path.join(d, tag)
+                t0 = time.perf_counter()
+                summary = cli_train.main(base + ["--output_dir", out] + extra)
+                sync()
+                main_s = time.perf_counter() - t0
+                with open(os.path.join(out, "metrics.csv"), newline="") as f:
+                    rows = [r for r in csv.DictReader(f) if r.get("loss")]
+                if tag == "multihost":
+                    runs["allreduce"] = time_grad_allreduce(torch, summary["trainable"], dev)
+                runs[tag] = {"loss": [float(r["loss"]) for r in rows],
+                             "loss_total": [float(r["loss_total"]) for r in rows],
+                             "grad_norm": [float(r["grad_norm"]) for r in rows],
+                             "step_ms": [s["step_s"] * 1e3 for s in summary["steps"]],
+                             "capture_s": summary["capture_s"], "main_s": main_s}
+                log(f"[parallel] train CLI {tag}: steps "
+                    f"{', '.join(f'{m:.1f}' for m in runs[tag]['step_ms'])} ms; loss "
+                    f"{runs[tag]['loss']}, grad_norm {runs[tag]['grad_norm']}; capture "
+                    f"{summary['capture_s']:.2f} s; main() {main_s:.1f} s")
+            ar = runs["allreduce"]
+            log(f"[parallel] gradient all-reduce of the {ar['values'] / 1e6:.2f} M trainable "
+                f"values ({ar['bytes'] / 1e6:.1f} MB f32), one rank: {ar['ms']:.3f} ms a call "
+                f"(median of {ar['calls']}, CUDA events), "
+                f"{100 * ar['ms'] / statistics.median(runs['plain']['step_ms']):.3f} % of the "
+                f"plain run's median step; a 4-rank ring would move 2 (N - 1) / N x "
+                f"{ar['bytes'] / 1e6:.1f} MB = {ar['ring4_bytes_per_rank'] / 1e6:.1f} MB a rank "
+                f"a step (reckoned, not measured)")
+            backend = dist.get_backend() if dist.is_initialized() else None
+            world = dist.get_world_size() if dist.is_initialized() else 0
+            log(f"[parallel] process group: backend {backend}, world size {world}")
+            if world != 1 or backend != ("nccl" if dev == "cuda" else "gloo"):
+                problems.append(f"--multihost left no one-rank group ({backend}, {world})")
+            plain, multi = runs["plain"], runs["multihost"]
+            for key in ("loss", "loss_total", "grad_norm"):
+                a, b = plain[key], multi[key]
+                if len(a) != PARALLEL_TRAIN_STEPS or len(b) != len(a) or any(
+                        not math.isfinite(x) or abs(x - y) > PARALLEL_LOSS_RTOL * abs(x)
+                        for x, y in zip(a, b)):
+                    problems.append(f"--multihost {key} {b} against the plain run's {a}")
+            report["train_cli"] = runs
+
+        with cli_setup(torch, UNetConfig(), LATENT, (768, 1280), on_cpu=False) as setup:
+            argv = setup.argv("--resolution", str(8 * LATENT), "--num_images", "1", "--batch",
+                              "1", "--seed", "0", "--device", dev, "--dtype", "bfloat16",
+                              "--num_steps", str(PARALLEL_SAMPLE_STEPS))
+            recs = {}
+            for tag, extra in (("plain", []), ("latency_shard", ["--latency_shard"])):
+                (recs[tag],) = cli_sample.main(argv + extra)
+                log(f"[parallel] sample CLI {tag}: image latency {recs[tag]['seconds']:.2f} s")
+            a = recs["plain"]["images"].astype(np.int16)
+            b = recs["latency_shard"]["images"].astype(np.int16)
+            diff = int(np.abs(a - b).max()) if a.shape == b.shape else None
+            log(f"[parallel] sample CLI --latency_shard vs plain: image {b.shape}, max "
+                f"difference {diff} of 255 (limit 1)")
+            if diff is None or diff > 1 or float(a.std()) <= 1.0:
+                problems.append(f"--latency_shard image differs from the plain one by {diff}")
+            report["latency_shard"] = {"max_diff_255": diff,
+                                       "seconds": {k: r["seconds"] for k, r in recs.items()}}
+
+        cfg = parallel_engine_cfg()
+        eng = Engine(cfg, device=dev)
+        params = perturb_zero_leaves(torch, eng.init_params(seed=0), seed=5)
+        guider = vanilla_cfg_img_ref(scale=7.5)
+        kw = dict(noise=torch.randn((1, LATENT, LATENT, 4), generator=torch.Generator(
+                      device=dev).manual_seed(4), device=dev),
+                  cams=make_cameras(torch, N_REF, guider.num_copies, dev),
+                  references=make_references(torch, cfg.unet, N_REF, LATENT, dev),
+                  choices=list(range(N_REF)), num_steps=PARALLEL_SAMPLE_STEPS)
+        cond = make_cond(torch, cfg.unet, 1, dev, torch.bfloat16, seed=2)
+        uc = make_cond(torch, cfg.unet, 1, dev, torch.bfloat16, seed=3)
+        group = dist.group.WORLD
+
+        def timed(fn):
+            sync()
+            t0 = time.perf_counter()
+            z = fn()
+            sync()
+            return z, time.perf_counter() - t0
+
+        ref, ref_s = timed(lambda: eng.sample(params, cond, uc, guider, **kw))
+        local = shard_params_tp(params, dist.get_world_size(group), dist.get_rank(group))
+        with tensor_parallel(group):
+            z_tp, tp_s = timed(lambda: eng.sample(local, cond, uc, guider, **kw))
+        del local
+        z_cfg, cfg_s = timed(lambda: eng.sample(params, cond, uc, guider, cfg_group=group, **kw))
+        scale = float(ref.abs().max())
+        errs = {}
+        for tag, z in (("tp", z_tp), ("cfg_group", z_cfg)):
+            errs[tag] = float((z - ref).abs().max())
+            ok = bool(torch.isfinite(z).all()) and errs[tag] <= PARALLEL_LATENT_RTOL * scale
+            if not ok:
+                problems.append(f"{tag} latent differs from the plain one by {errs[tag]} "
+                                f"(max|plain| {scale})")
+        log(f"[parallel] Engine.sample [main] config, {PARALLEL_SAMPLE_STEPS} steps: plain "
+            f"{ref_s:.2f} s, tensor-parallel (model group of 1) {tp_s:.2f} s, max difference "
+            f"{errs['tp']:.4g}; cfg_group {cfg_s:.2f} s, max difference {errs['cfg_group']:.4g} "
+            f"(max|plain| {scale:.4g}, limit {PARALLEL_LATENT_RTOL:g} of it)")
+        report["engine"] = {"plain_s": ref_s, "tp_s": tp_s, "cfg_group_s": cfg_s,
+                            "tp_max_err": errs["tp"], "cfg_group_max_err": errs["cfg_group"],
+                            "scale": scale}
+        del params, eng
+    finally:
+        from custom_diffusion360_torch.engine import Engine as _Engine
+
+        _Engine.init_params = orig_init
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    launches = {k: c.launches for k, c in counters.items()}
+    by_shape = {(k, shape): n for k, c in counters.items()
+                for shape, n in c.launches_by_shape.items()}
+    report["launches"] = launches
+    report["wall_s"] = time.time() - t_phase
+    log(f"[parallel] launches {json.dumps(launches)}; phase wall {report['wall_s']:.1f} s")
+    print(json.dumps({"parallel_path": report}), flush=True)
+    if problems:
+        raise RuntimeError("parallel path: " + "; ".join(problems))
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return launches, by_shape
+
+
+# ---------------------------------------------------------------------------
 # phase 6: kernels vs plain versions through small samples and a train step
 # ---------------------------------------------------------------------------
 
@@ -2069,6 +2321,7 @@ def main():
     paths["cli"] = run_cli_path(torch, counters, main_decode_ms)
     paths["samplers"] = run_samplers_path(torch, counters)
     paths["train_cli"] = run_train_cli_path(torch, counters)
+    paths["parallel"] = run_parallel_path(torch, counters)
     check_launched(torch, results, {key for _, shapes in paths.values() for key in shapes})
     time_attention_backward(torch, grad_shapes)
     run_small_check(torch)
@@ -2090,7 +2343,7 @@ def main():
     expected = {"sample": set(counters) - {"bilinear_bwd"} - switched,
                 "train": set(counters) - switched, "cli": set(counters) - {"bilinear_bwd"},
                 "samplers": set(counters) - {"bilinear_bwd"},
-                "train_cli": set(counters) - switched}
+                "train_cli": set(counters) - switched, "parallel": set(counters)}
     for path, (launches, _) in paths.items():
         missing = sorted(k for k in expected[path] if launches[k] == 0)
         if missing:

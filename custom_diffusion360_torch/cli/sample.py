@@ -22,8 +22,15 @@ discretization_name=edm`` or ``sampler.s_churn=...`` reach the sampler).
 job, so the deterministic samplers give the same image at any ``--batch``;
 the ancestral ones (and churn) draw their per-step noise per batch of jobs
 from ``--seed``, so a run repeats exactly for a fixed ``--batch``, as in the
-JAX CLI. The JAX CLI's ``--latency_shard`` is not ported, and refused
-(ROADMAP.md Queue 1 item 4).
+JAX CLI.
+
+``--latency_shard`` splits the guider's CFG rows of each batch over the
+cards (``Engine.sample(cfg_group=)``): ``torchrun --nproc_per_node N -m
+custom_diffusion360_torch.cli.sample --latency_shard ...``. The group is the
+first G ranks, G the largest count up to the world size that divides the
+num_copies x batch rows; ranks past G stay idle, and rank 0 alone writes
+the PNGs. In a world of one, or without a process group (no torchrun
+environment), the flag changes nothing.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ from ..models.clip import ClipTextConfig
 from ..models.conditioner import ConditionerConfig, get_unconditional_conditioning
 from ..models.unet import UNetConfig
 from ..models.vae import VAEConfig
+from ..parallel import is_main_process, rank, world_size
 from ..train.trainer import tree_map
 from ..utils.config import load_config
 
@@ -113,7 +121,7 @@ def build_parser():
     p.add_argument("--override", action="append", default=[],
                    help="config dotlist override, repeatable")
     p.add_argument("--latency_shard", action="store_true",
-                   help="multi-card latency sharding (not ported yet)")
+                   help="split the guider's CFG rows over the cards of a torchrun world")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -182,6 +190,23 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _latency_group(latency_shard: bool, rows: int):
+    """(cfg_group, whether this rank is in it) for --latency_shard over
+    ``rows`` guider rows: without the flag, a process group or a second
+    rank, (None, True); else the group of the first G ranks, G the largest
+    count up to the world size that divides ``rows``. Every rank calls
+    ``new_group``, as it must."""
+    import torch.distributed as dist
+
+    if not latency_shard or world_size() == 1:
+        return None, True
+    g = min(world_size(), rows)
+    while rows % g:
+        g -= 1
+    group = dist.group.WORLD if g == world_size() else dist.new_group(list(range(g)))
+    return (group, True) if rank() < g else (None, False)
+
+
 @torch.inference_mode()
 def main(argv=None, *, callback=None):
     """Run the CLI. ``callback(i)``, when given, runs after sampler step i
@@ -189,10 +214,11 @@ def main(argv=None, *, callback=None):
     poses: {"paths", "images" (uint8 (b, H, W, 3)), "sample_s", "decode_s",
     "seconds"}."""
     args = build_parser().parse_args(argv)
-    if args.latency_shard:
-        raise NotImplementedError("--latency_shard (CFG-row and view sharding across cards) is "
-                                  "not ported yet (ROADMAP.md Queue 1 item 4, parallelism)")
     device = resolve_device(args.device)
+    if args.latency_shard and "WORLD_SIZE" in os.environ:
+        from ..parallel import init_distributed
+
+        device = init_distributed(device=args.device)
     cfg = EngineConfig(compute_dtype=args.dtype,
                        unet=UNetConfig(nerf_dtype=args.dtype, nerf_chunk_size=args.nerf_chunk))
     if args.smoke:
@@ -261,7 +287,10 @@ def main(argv=None, *, callback=None):
     n_val = cams_val.batch_shape[0]
     pose_ids = rng.choice(n_val, min(args.num_images, n_val), replace=False)
     latent = args.resolution // 8
-    os.makedirs(args.output_dir, exist_ok=True)
+    cfg_group, in_group = _latency_group(args.latency_shard, guider.num_copies * b)
+    writer = is_main_process()
+    if writer:
+        os.makedirs(args.output_dir, exist_ok=True)
 
     # (pose, sweep step) jobs, sampled --batch at a time; each row carries
     # its own target camera, the reference cameras and features are shared
@@ -282,6 +311,9 @@ def main(argv=None, *, callback=None):
             jobs.append((count, j, tgt))
 
     records = []
+    if not in_group:
+        print("--latency_shard: this rank is outside the CFG group, idle", flush=True)
+        jobs = []
     for start in range(0, len(jobs), b):
         chunk = jobs[start: start + b]
         real = len(chunk)
@@ -300,7 +332,8 @@ def main(argv=None, *, callback=None):
         z = eng.sample(params, c, uc, guider, noise=noise, cams=cams, references=references,
                        choices=choices if references else None, num_steps=args.num_steps,
                        sampler=args.sampler, draws=Draws(chunk_generator(args.seed, start)),
-                       callback=callback, shared_target_cams=True)
+                       callback=callback, shared_target_cams=True,
+                       cfg_group=cfg_group)
         _sync(device)
         t1 = time.perf_counter()
         img = eng.decode_first_stage(params, z.to(dtype))
@@ -308,7 +341,7 @@ def main(argv=None, *, callback=None):
         t2 = time.perf_counter()
         dt = t2 - t0
         paths = []
-        for r in range(real):
+        for r in range(real if writer else 0):
             count, j, _ = chunk[r]
             out_path = os.path.join(args.output_dir, f"sample_{count:02d}_{j:02d}.png")
             write_png(out_path, img[r])

@@ -21,8 +21,17 @@ predicted RGB and foreground masks, and the prompts as ``conditioning``) to
 ``images/<name>_<step:06d>.png`` at every step that is a multiple of N,
 and with ``--log_steps_increase`` also at the powers of two up to N.
 
-Not ported yet, and refused: ``--multihost`` with its ``--coordinator``,
-``--num_processes`` and ``--process_id`` (ROADMAP.md Queue 1 item 4).
+``--multihost`` trains data-parallel, one process per card: started by
+``torchrun --nproc_per_node N -m custom_diffusion360_torch.cli.train
+--multihost ...`` (the rendezvous from torchrun's environment), or by hand
+with ``--coordinator host:port --num_processes N --process_id i`` in each
+process. NCCL on the card, gloo with ``--device cpu``. Every rank loads its
+own rows (loader seed ``--seed`` + rank, the smoke batches from rank), the
+trainer all-reduces the gradient mean, the capture splits its views over
+the ranks when their count divides them, and rank 0 alone writes
+metrics.csv, wandb, the profile, checkpoints, deltas, preview grids and the
+cameras. ``--scale_lr`` scales by accumulate x ranks x batch. The process
+group stays up when ``main`` returns (an in-process caller destroys it).
 """
 from __future__ import annotations
 
@@ -50,10 +59,10 @@ def build_parser():
     p.add_argument("--output_dir", default="runs/run0")
     p.add_argument("--name", default="")
     p.add_argument("--max_steps", type=int, default=1610)
-    p.add_argument("--batch_size", type=int, default=1, help="per-device batch")
+    p.add_argument("--batch_size", type=int, default=1, help="per-rank batch")
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--scale_lr", action="store_true",
-                   help="scale lr by accumulate * devices * batch")
+                   help="scale lr by accumulate * ranks * batch")
     p.add_argument("--trainkeys", default="pose", choices=["pose", "poseattn", "all"])
     p.add_argument("--img_size", type=int, default=512)
     p.add_argument("--num_images", type=int, default=5)
@@ -80,8 +89,10 @@ def build_parser():
                    help="also write grids at the power-of-two steps up to --sample_every")
     p.add_argument("--val_every", type=int, default=0,
                    help="log a validation loss every N steps")
-    p.add_argument("--multihost", action="store_true", help="multi-host run (not ported yet)")
-    p.add_argument("--coordinator", default=None)
+    p.add_argument("--multihost", action="store_true",
+                   help="data-parallel run, one process per card (torch.distributed)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0 for --multihost (default: torchrun's env)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--profile_steps", type=int, default=0,
@@ -92,14 +103,6 @@ def build_parser():
     p.add_argument("--smoke_steps", type=int, default=2)
     p.add_argument("--device", default="cuda")
     return p
-
-
-def _refuse_unported(args):
-    if (args.multihost or args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(
-            "--multihost (--coordinator, --num_processes, --process_id) is not ported yet "
-            "(ROADMAP.md Queue 1 item 4, parallelism)")
 
 
 def log_images_now(step: int, sample_every: int, increase: bool) -> bool:
@@ -126,10 +129,31 @@ def main(argv=None):
     """Run the CLI. Returns a summary: {"output_dir", "steps": [{"step",
     "step_s", "data_s"}], "grids": [{"step", "seconds", "paths"}] (the
     preview grids and the wall time of their log_images call),
-    "capture_s", "delta", "cameras"}."""
+    "capture_s", "delta", "cameras", "trainable" (the final trainable leaves,
+    before an EMA swap)}."""
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
-    device = resolve_device(args.device)
+    group = None
+    rendezvous = (args.coordinator, args.num_processes, args.process_id)
+    if not args.multihost and any(x is not None for x in rendezvous):
+        raise ValueError("--coordinator, --num_processes and --process_id need --multihost")
+    if args.multihost and args.coordinator is None and "WORLD_SIZE" not in os.environ:
+        raise ValueError("--multihost needs --coordinator host:port --num_processes N "
+                         "--process_id i, or torchrun's environment")
+    if args.multihost:
+        import torch.distributed as dist
+
+        from ..parallel import init_distributed
+
+        device = init_distributed(args.coordinator, args.num_processes, args.process_id,
+                                  device=args.device)
+        group = dist.group.WORLD
+    else:
+        device = resolve_device(args.device)
+    from ..parallel import (all_reduce_mean, barrier, is_main_process, rank, replicate,
+                            world_size)
+
+    me, ranks = rank(group), world_size(group)
+    is_main = is_main_process()
 
     from ..engine import Engine, EngineConfig
     from ..train.checkpoint import latest_checkpoint, restore_train_state, save_train_state
@@ -154,9 +178,10 @@ def main(argv=None):
 
     lr = args.lr
     if args.scale_lr:
-        lr = lr * args.accumulate * args.batch_size  # one device
+        lr = lr * args.accumulate * ranks * args.batch_size
     trainer = Trainer(eng, TrainConfig(lr=lr, trainkeys=args.trainkeys,
-                                       accumulate_grad_batches=args.accumulate))
+                                       accumulate_grad_batches=args.accumulate),
+                      data_group=group)
 
     if args.base_ckpt:
         from ..io.torch_convert import load_sdxl_checkpoint
@@ -186,15 +211,17 @@ def main(argv=None):
                           num_images=args.num_images, modifier_token=args.modifier_token,
                           addreg=args.reg_dir is not None, reg_dir=args.reg_dir)
         ds = Co3dDataset(dcfg)
-        loader = DataLoader(ds, args.batch_size, tok_clip, tok_open, seed=args.seed,
+        # this rank's rows (the DDP per-rank split)
+        loader = DataLoader(ds, args.batch_size, tok_clip, tok_open, seed=args.seed + me,
                             device=device)
         capture_data = (ds, dcfg)
         train_iter = _cycle(loader)
 
     state = trainer.init_state(params)
     del params
-    with open(os.path.join(args.output_dir, "config.json"), "w") as f:
-        json.dump(config_to_dict(cfg), f, indent=2, default=str)
+    if is_main:
+        with open(os.path.join(args.output_dir, "config.json"), "w") as f:
+            json.dump(config_to_dict(cfg), f, indent=2, default=str)
 
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
     mask = tree_map(lambda lab: lab != "frozen", trainer.labels)
@@ -204,11 +231,23 @@ def main(argv=None):
         if latest:
             state, ema = restore_train_state(latest, state, ema)
             print(f"resumed from {latest} at step {state.step}", flush=True)
+    if group is not None:  # rank 0's values everywhere; raises if any rank's differed
+        replicate(state.params, group)
+
+    def save_state():
+        # rank 0 writes; every rank waits for it, so a resume finds the file
+        if is_main:
+            save_train_state(ckpt_dir, state, ema=ema)
+        if group is not None:
+            barrier(group)
 
     # SIGUSR1 writes a checkpoint, SIGUSR2 enters the debugger (the
     # reference's melk and divein handlers); the previous handlers come
     # back when main returns
     def melk(*_):
+        if group is not None:  # the ranks' barrier cannot run from a signal handler
+            print("SIGUSR1 ignored under --multihost", flush=True)
+            return
         print("SIGUSR1: writing checkpoint", flush=True)
         save_train_state(ckpt_dir, state, ema=ema)
 
@@ -230,17 +269,18 @@ def main(argv=None):
             val_iter = _cycle(_synthetic_batches(args, cfg, tok_clip, tok_open, device))
         else:
             val_iter = _cycle(DataLoader(ds, args.batch_size, tok_clip, tok_open,
-                                         seed=args.seed + 10_000, device=device))
+                                         seed=args.seed + 10_000 + me, device=device))
 
-    meter = MetricsLogger(args.output_dir, args.batch_size, wandb_project=args.wandb,
-                          run_name=args.name)
+    meter = MetricsLogger(args.output_dir, ranks * args.batch_size,
+                          wandb_project=args.wandb if is_main else None, run_name=args.name)
+    shard = None if group is None else (me, ranks)
     profile_dir = os.path.join(args.output_dir, "profile")
     prof = None
     steps, grids = [], []
     t_start = time.time()
     try:
         for step in range(state.step, args.max_steps):
-            if args.profile_steps and step == 10:
+            if args.profile_steps and step == 10 and is_main:
                 prof = torch.profiler.profile(activities=_profiler_activities(device))
                 prof.start()
             t0 = time.perf_counter()
@@ -250,7 +290,7 @@ def main(argv=None):
             batch.pop("txt_ref", None)
             meter.tic()
             state, metrics = trainer.train_step(
-                state, batch, Draws(step_generator(args.seed, step, device)))
+                state, batch, Draws(step_generator(args.seed, step, device), shard=shard))
             _sync(device)  # the meter times the whole step
             step_s = meter.toc()
             steps.append({"step": step, "step_s": step_s, "data_s": data_s})
@@ -262,7 +302,7 @@ def main(argv=None):
                 print(f"profiler trace written to {profile_dir}", flush=True)
             if ema is not None:
                 ema = ema_update(ema, state.params, args.ema_decay)
-            if step % args.log_every == 0 or step == args.max_steps - 1:
+            if is_main and (step % args.log_every == 0 or step == args.max_steps - 1):
                 row = meter.log(step, dict(metrics, step_ms=step_s * 1e3,
                                            data_ms=data_s * 1e3))
                 print(f"step {step}: loss={row.get('loss_total', 0):.4f} " + " ".join(
@@ -275,14 +315,22 @@ def main(argv=None):
                 with torch.no_grad():
                     _, vmetrics = eng.training_loss(
                         state.params, vbatch, state.step,
-                        Draws(step_generator(args.seed, step, device, stream=1)))
-                row = meter.log(step, {f"val_{k}": v for k, v in vmetrics.items()})
-                print(f"step {step}: val_loss={row.get('val_loss_total', 0):.4f}", flush=True)
-            if args.ckpt_every and step and step % args.ckpt_every == 0:
+                        Draws(step_generator(args.seed, step, device, stream=1), shard=shard),
+                        data_group=group)
+                if group is not None:  # the global batch's mean
+                    names = sorted(vmetrics)
+                    mean = all_reduce_mean([torch.stack([vmetrics[k].float() for k in names])],
+                                           group)[0]
+                    vmetrics = dict(zip(names, mean.unbind()))
+                if is_main:
+                    row = meter.log(step, {f"val_{k}": v for k, v in vmetrics.items()})
+                    print(f"step {step}: val_loss={row.get('val_loss_total', 0):.4f}",
+                          flush=True)
+            if args.ckpt_every and step and step % args.ckpt_every == 0 and is_main:
                 _save_delta(args, state.params, None, cfg, tag=f"step{step}")
             if args.full_ckpt_every and step and step % args.full_ckpt_every == 0:
-                save_train_state(ckpt_dir, state, ema=ema)
-            if log_images_now(step, args.sample_every, args.log_steps_increase):
+                save_state()
+            if is_main and log_images_now(step, args.sample_every, args.log_steps_increase):
                 t0 = time.perf_counter()
                 images = eng.log_images(state.params, batch, Draws(
                     step_generator(args.seed, step, device, stream=3)), num_steps=8)
@@ -298,8 +346,9 @@ def main(argv=None):
                 grids.append({"step": step, "seconds": log_s, "paths": paths})
                 print(f"step {step}: {len(paths)} image grids in {log_s:.2f}s", flush=True)
     except KeyboardInterrupt:
-        print("interrupted: writing last checkpoint", flush=True)
-        save_train_state(ckpt_dir, state, ema=ema)
+        if group is None:  # under --multihost the peers may be gone: a barrier would hang
+            print("interrupted: writing last checkpoint", flush=True)
+            save_train_state(ckpt_dir, state, ema=ema)
         raise
     finally:
         if prof is not None:  # the run ended inside the traced steps
@@ -311,7 +360,8 @@ def main(argv=None):
                 it.close()  # stops a loader's worker thread
         meter.close()
 
-    save_train_state(ckpt_dir, state, ema=ema)
+    save_state()
+    trainable = [leaf.detach() for leaf in trainer.trainable(state)]
     params = state.params if ema is None else ema_swap(state.params, ema)
     print(f"training done in {time.time() - t_start:.0f}s", flush=True)
 
@@ -319,16 +369,20 @@ def main(argv=None):
     references, capture_s = None, None
     if capture_data is not None:
         t0 = time.perf_counter()
-        references = _run_capture(args, eng, params, capture_data, tok_clip, tok_open, device)
+        references = _run_capture(args, eng, params, capture_data, tok_clip, tok_open, device,
+                                  group=group, write=is_main)
         _sync(device)
         capture_s = time.perf_counter() - t0
-    delta = _save_delta(args, params, references, cfg, tag="last")
-    print(f"delta checkpoint written to {args.output_dir}", flush=True)
+    delta = None
+    if is_main:
+        delta = _save_delta(args, params, references, cfg, tag="last")
+        print(f"delta checkpoint written to {args.output_dir}", flush=True)
     return {"output_dir": args.output_dir, "steps": steps, "grids": grids,
             "capture_s": capture_s,
             "delta": delta,
             "cameras": None if capture_data is None else
-            os.path.join(args.output_dir, "cameras.npz")}
+            os.path.join(args.output_dir, "cameras.npz"),
+            "trainable": trainable}
 
 
 def _profiler_activities(device):
@@ -352,14 +406,17 @@ def _save_delta(args, params, references, cfg, tag):
 
 
 @torch.no_grad()
-def _run_capture(args, eng, params, capture_data, tok_clip, tok_open, device):
+def _run_capture(args, eng, params, capture_data, tok_clip, tok_open, device, group=None,
+                 write=True):
     """Forward the onlyref set (every valid frame once, plus the zero
     image) through the reference stream, collect each pose block's buffer,
-    and write cameras.npz."""
+    and (``write``) write cameras.npz. Under ``group`` the views split over
+    its ranks when their count divides them; else every rank runs all."""
     from ..data.co3d import Co3dDataset
     from ..geometry.cameras import stack_cameras
     from ..io.cameras_io import save_cameras_npz
     from ..models.conditioner import apply_conditioner
+    from ..parallel import world_size
     from ..train.capture import capture_references
 
     ds, dcfg = capture_data
@@ -384,21 +441,27 @@ def _run_capture(args, eng, params, capture_data, tok_clip, tok_open, device):
         "tokens_open": torch.from_numpy(tok_open([prompt] * n_rows)).to(device),
         "original_size": size, "crop_coords": torch.zeros_like(size), "target_size": size,
     }, eng.cfg.conditioner, ref=False)
+    view_group = None
+    if group is not None and (n_items + 1) % world_size(group) == 0:
+        view_group = group
     references = capture_references(
         eng, params, images_ref, cam_batch.tensors(device), cond,
-        Draws(step_generator(args.seed, args.max_steps, device, stream=2)))
-    train_cams = stack_cameras(cams).tensors()
-    save_cameras_npz(os.path.join(args.output_dir, "cameras.npz"), train=train_cams,
-                     val=train_cams)
+        Draws(step_generator(args.seed, args.max_steps, device, stream=2)),
+        view_group=view_group)
+    if write:
+        train_cams = stack_cameras(cams).tensors()
+        save_cameras_npz(os.path.join(args.output_dir, "cameras.npz"), train=train_cams,
+                         val=train_cams)
     return references
 
 
 def _synthetic_batches(args, cfg, tok_clip, tok_open, device):
     """Random batches in the CO3D batch contract (--smoke), as the JAX
-    CLI's."""
+    CLI's: this rank's rows, from a generator seeded by the rank."""
     from ..geometry.cameras import Cameras
+    from ..parallel import rank
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(rank())
     b, n, s = args.batch_size, args.num_images - 1, args.img_size
     prompt = f"photo of a {args.modifier_token} {args.category}"
     vocab_l, vocab_g = cfg.conditioner.clip_l.vocab_size, cfg.conditioner.open_clip.vocab_size

@@ -119,14 +119,18 @@ def compute_loss_terms(model_output, fg_mask_list, alphas_list, rgb_list, target
 
 
 def combine_losses(terms: dict, drop_im, global_step: int, *,
-                   cfg: DiffusionLossConfig = DiffusionLossConfig(), rgb_predict: bool = True):
+                   cfg: DiffusionLossConfig = DiffusionLossConfig(), rgb_predict: bool = True,
+                   kept=None):
     """Lambda-weighted total -> (loss, metrics). ``drop_im`` (B,) is 1 where
     the item kept its reference images (fg/bg/rgb apply only there); the
-    fg/bg terms count only from global_step 1 on."""
+    fg/bg terms count only from global_step 1 on. ``kept``: the count of
+    such items that the fg/bg/rgb sums are divided by, by default this
+    batch's. Under data parallelism it is the mean of the ranks' counts, so
+    that the mean of the ranks' terms is the global batch's term."""
     loss_mean = terms["l2"].mean()
     metrics = {"loss": loss_mean}
     drop = drop_im.reshape(-1).float()
-    denom = drop.sum() + 1e-12
+    denom = (drop.sum() if kept is None else kept) + 1e-12
     if terms["fg"] is not None:
         loss_fg = (terms["fg"].mean(1) * drop).sum() / denom
         loss_bg = (terms["bg"].mean(1) * drop).sum() / denom

@@ -33,7 +33,7 @@ import torch
 from . import resolve_device
 from .diffusion.denoiser import Denoiser, DenoiserConfig
 from .diffusion.discretization import legacy_ddpm_sigmas, make_sigmas
-from .diffusion.guiders import vanilla_cfg_img_ref
+from .diffusion.guiders import _COND_KEYS, vanilla_cfg_img_ref
 from .diffusion.loss import DiffusionLossConfig, combine_losses, diffusion_loss_img_ref
 from .diffusion.sampling import (
     SAMPLERS,
@@ -125,7 +125,7 @@ class Engine:
 
         return network
 
-    def training_loss(self, params, batch, global_step: int, draws):
+    def training_loss(self, params, batch, global_step: int, draws, data_group=None):
         """One training forward -> (scalar loss, metrics).
 
         batch: image (B, H, W, 3) in [-1, 1]; image_ref (B, N, H, W, 3); mask
@@ -135,6 +135,10 @@ class Engine:
         size tuples original_size, crop_coords, target_size (B, 2) and
         their ``_ref`` rows. draws: a ``draws.Draws`` for vae_eps,
         vae_eps_ref, the loss's draws and the renders' (``nerf/...``).
+        data_group: this batch is one rank's rows of a global batch split
+        over the group; the fg / bg / rgb terms are then divided by the mean
+        of the ranks' counts of items that kept their references, so the
+        mean of the ranks' losses is the global batch's loss.
         """
         x_rgb = batch["image"].to(self.device)
         x = self.encode_first_stage(
@@ -163,11 +167,17 @@ class Engine:
             draws=draws, sigmas_cubic=self.sigmas_cubic, sigmas_discrete=self.sigmas_discrete,
             cfg=self.cfg.loss,
         )
-        return combine_losses(terms, batch["drop_im"].to(self.device), global_step,
-                              cfg=self.cfg.loss, rgb_predict=self.cfg.unet.rgb_predict)
+        drop = batch["drop_im"].to(self.device)
+        kept = None
+        if data_group is not None:
+            from .parallel.mesh import all_reduce_mean
+
+            kept = all_reduce_mean([drop.float().sum().reshape(1)], data_group)[0][0]
+        return combine_losses(terms, drop, global_step, cfg=self.cfg.loss,
+                              rgb_predict=self.cfg.unet.rgb_predict, kept=kept)
 
     def build_ref_features(self, references, choices, batch_size, num_copies,
-                           shared_cams=False, compact=True):
+                           shared_cams=False, compact=True, rows=None):
         """Per-block reference tokens from delta-checkpoint buffers
         references {attn_id: {d: (Nref+1, hw, C)}} (last row = zero-image
         feature) and the chosen rows ``choices`` (n,), their num_copies CFG
@@ -175,14 +185,15 @@ class Engine:
         ``compact``: CompactRefTokens, whose expansion is deferred into the
         per-block projection (``shared_cams`` licenses the x3 render dedupe);
         else the dense (num_copies * B, n, hw, C) tensors that a per-row
-        ``mask_ref`` needs."""
+        ``mask_ref`` needs. ``rows`` (lo, hi): only those expanded rows
+        (``Engine.sample(cfg_group=)``)."""
         idx = torch.as_tensor(choices, dtype=torch.long)
         out = {}
         for attn_id, per_d in references.items():
             out[attn_id] = {}
             for d, buf in per_d.items():
                 tok = CompactRefTokens(buf[-1], buf[:-1][idx.to(buf.device)], batch_size,
-                                       num_copies, shared_cams=shared_cams)
+                                       num_copies, shared_cams=shared_cams, rows=rows)
                 if not compact:
                     tok = tok.expand_rows(tok.zero[None].expand(tok.chosen.shape),
                                           tok.chosen).contiguous()
@@ -195,7 +206,7 @@ class Engine:
                num_steps: Optional[int] = None, cache_nerf: bool = True,
                sampler: Optional[str] = None, draws=None,
                callback: Optional[Callable[[int], None]] = None,
-               shared_target_cams: bool = False):
+               shared_target_cams: bool = False, cfg_group=None):
         """Pose-conditioned sampling -> latents (B, h, w, 4) f32.
 
         noise: (B, h, w, 4) standard normal draws (the initial latent before
@@ -228,6 +239,14 @@ class Engine:
         cached steps also run the UNet's pre-pose-block prefix on the
         guider's unique copies (``prefix_copy_groups``; off with
         ``CD360_PREFIX_DEDUPE=0``).
+
+        cfg_group: a process group whose size divides the num_copies * B
+        guider rows (latency sharding, the JAX package's ``cfg_sharding``).
+        Each rank runs the UNet on its own run of those rows (its cameras,
+        reference rows and conditioning rows), and one all-gather before
+        the guider combine gives every rank all of them, so every rank
+        steps the same latent. Both dedupes are off under it, as in JAX
+        (they move rows between copies). Every rank passes the same inputs.
         """
         cfg = self.cfg
         n_steps = num_steps or cfg.num_sample_steps
@@ -246,14 +265,49 @@ class Engine:
                 sigmas_ref = sigmas_ref.to(self.device, torch.float32)
         if mask_ref is not None:
             mask_ref = mask_ref.to(self.device)
+        rows = b * guider.num_copies
+        lo, hi = 0, rows
+        if cfg_group is not None:
+            from .parallel.mesh import rank, world_size
+
+            n = world_size(cfg_group)
+            if rows % n:
+                raise ValueError(f"{rows} guider rows do not split over {n} ranks")
+            lo = rank(cfg_group) * (rows // n)
+            hi = lo + rows // n
+            cams = None if cams is None else cams[lo:hi]
+            input_ref = None if input_ref is None else input_ref[lo:hi]
+            sigmas_ref = None if sigmas_ref is None else sigmas_ref[lo:hi]
+            mask_ref = None if mask_ref is None else mask_ref[lo:hi]
 
         # inference-only q/k/v projection fusion, once per call
         params = dict(params, unet=fuse_attention_params(params["unet"]))
         ref_features = None
         if references is not None:
-            ref_features = self.build_ref_features(references, choices, b, guider.num_copies,
-                                                   shared_cams=shared_target_cams,
-                                                   compact=mask_ref is None)
+            ref_features = self.build_ref_features(
+                references, choices, b, guider.num_copies,
+                shared_cams=shared_target_cams and cfg_group is None,
+                compact=mask_ref is None, rows=None if cfg_group is None else (lo, hi))
+
+        def local_rows(xb, sb, cb):
+            """This rank's guider rows: the target rows lo..hi-1 and, with
+            live references, their reference rows after all target rows."""
+            if cfg_group is None:
+                return xb, sb, cb
+            out = {}
+            for k, v in cb.items():
+                if k in _COND_KEYS:
+                    per = (v.shape[0] - rows) // rows  # reference rows per guider row
+                    v = torch.cat([v[lo:hi], v[rows + lo * per: rows + hi * per]])
+                out[k] = v
+            return xb[lo:hi], sb[lo:hi], out
+
+        def gathered(denoised):
+            if cfg_group is None:
+                return denoised
+            from .parallel.mesh import all_gather_rows
+
+            return all_gather_rows(denoised, cfg_group)
 
         def make_denoise(nerf_caches, collect_rendered):
             ctx_kv = None
@@ -263,10 +317,11 @@ class Engine:
                 # rows follow the target rows, so keep the target rows only
                 sig0 = torch.zeros((b,), device=self.device)
                 _, _, cb = guider.prepare(x, sig0, cond, uc)
-                ctx = cb["crossattn"][: b * guider.num_copies]
+                ctx = cb["crossattn"][lo:hi]
                 ctx_kv = precompute_context_kv(params["unet"], cfg.unet, ctx.to(cfg.dtype))
             prefix_dedupe = None
-            if nerf_caches is not None and os.environ.get("CD360_PREFIX_DEDUPE", "1") != "0":
+            if (nerf_caches is not None and cfg_group is None
+                    and os.environ.get("CD360_PREFIX_DEDUPE", "1") != "0"):
                 prefix_dedupe = getattr(guider, "prefix_copy_groups", None)
             network = self.network_fn(
                 params, cams, mask_ref, nerf_caches=nerf_caches,
@@ -278,8 +333,9 @@ class Engine:
                 live = dict(input_ref=input_ref, sigmas_ref=sigmas_ref)
 
             def denoise(xi, sigma_vec):
-                xb, sb, cb = guider.prepare(xi, sigma_vec, cond, uc)
+                xb, sb, cb = local_rows(*guider.prepare(xi, sigma_vec, cond, uc))
                 denoised, aux = self.denoiser(network, xb, sb, cb, **live)
+                denoised = gathered(denoised)
                 if collect_rendered:
                     return guider.combine(denoised, sigma_vec), aux["rendered"]
                 return guider.combine(denoised, sigma_vec)

@@ -216,26 +216,33 @@ class CompactRefTokens:
 
     ``shared_cams``: the caller's declaration that every CFG copy carries
     the same target camera rows (``Engine.sample(shared_target_cams=)``),
-    which licenses the x3 render dedupe (transformer._reference_attn)."""
+    which licenses the x3 render dedupe (transformer._reference_attn).
+    ``rows`` (lo, hi): only the expanded rows lo..hi-1 (a rank's share of
+    the CFG rows under ``Engine.sample(cfg_group=)``)."""
 
-    def __init__(self, zero, chosen, batch: int, copies: int, shared_cams: bool = False):
+    def __init__(self, zero, chosen, batch: int, copies: int, shared_cams: bool = False,
+                 rows=None):
         self.zero = zero
         self.chosen = chosen
         self.batch = int(batch)
         self.copies = int(copies)
         self.shared_cams = bool(shared_cams)
+        self.rows = None if rows is None else (int(rows[0]), int(rows[1]))
 
     @property
     def shape(self):
-        return (self.batch * self.copies, self.chosen.shape[0]) + tuple(self.chosen.shape[1:])
+        n = self.batch * self.copies if self.rows is None else self.rows[1] - self.rows[0]
+        return (n, self.chosen.shape[0]) + tuple(self.chosen.shape[1:])
 
     def expand_rows(self, zero_rows, chosen_rows):
         b, k = self.batch, self.copies
         if k == 1:
-            return chosen_rows[None].expand((b,) + tuple(chosen_rows.shape))
-        z = zero_rows[None].expand((b,) + tuple(zero_rows.shape))
-        s = chosen_rows[None].expand(((k - 1) * b,) + tuple(chosen_rows.shape))
-        return torch.cat([z, s], dim=0)
+            out = chosen_rows[None].expand((b,) + tuple(chosen_rows.shape))
+        else:
+            z = zero_rows[None].expand((b,) + tuple(zero_rows.shape))
+            s = chosen_rows[None].expand(((k - 1) * b,) + tuple(chosen_rows.shape))
+            out = torch.cat([z, s], dim=0)
+        return out if self.rows is None else out[self.rows[0]:self.rows[1]]
 
 
 def apply_ref_mask(xref, mask_ref):

@@ -10,6 +10,13 @@ stream ``xr``: the reference views run the same frozen weights in lockstep,
 without gradient (``torch.no_grad``, where the JAX package stop-gradients
 them), and each pose block renders from the reference activations that
 enter it. Training uses the canonical un-fused q/k/v projections.
+
+Tensor parallelism (``parallel/tp.py``): with local slices of the
+projections (``shard_params_tp``) inside ``tensor_parallel(group)``, every
+attention runs on its local heads (its width / d_head) and every to_out and
+ff out ends with an all-reduce over the model group, in float32, the bias
+in the first rank's partial product. A projection is split when its local width times the group size is the
+full one (heads x d_head, or 4 x dim for the feed-forward).
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 from ..geometry.cameras import Cameras
 from ..ops.attention import dot_product_attention, dot_product_attention_qkv
 from ..ops.volume_render import volume_render
+from ..parallel import tp
 from .nerf import CompactRefTokens, NerfConfig, init_nerf_params, nerfsd_apply
 from .nn import (
     Init,
@@ -107,11 +115,34 @@ def context_kv(p, ctx):
     return k, v
 
 
-def cross_attention_apply(p, x, context=None, *, n_heads: int, kv=None):
+def _row_linear(p, x, split: bool):
+    """A row-parallel product: split, the bias in the model group's first
+    partial product, the partial products summed in float32 and rounded
+    once to x's dtype. In a group of one it is ``linear`` bit for bit."""
+    if not split:
+        return linear(p, x)
+    q = {"w": p["w"]}
+    if "b" in p:
+        q["b"] = tp.bias_on_first(p["b"])
+    y = linear(q, x)
+    return tp.reduce_from_model(y.float()).to(y.dtype)
+
+
+def cross_attention_apply(p, x, context=None, *, n_heads: int, kv=None,
+                          d_head: Optional[int] = None):
     """x: (B, N, C); context: (B, M, Cc) or None (self-attention). Takes the
     canonical params (to_q/to_k/to_v) or the fused inference layout of
     :func:`fuse_attention_params` (to_qkv, to_q + to_kv); kv: precomputed
-    (k, v) from :func:`context_kv`."""
+    (k, v) from :func:`context_kv`. ``n_heads`` x ``d_head`` is the full
+    width (d_head defaults to the local width / n_heads); local
+    tensor-parallel slices run width / d_head heads."""
+    inner = p["to_out"]["w"].shape[0]
+    d_head = inner // n_heads if d_head is None else d_head
+    split = tp.is_split(inner, n_heads * d_head)
+    heads = inner // d_head
+    if split:
+        x = tp.copy_to_model(x)
+        context = None if context is None else tp.copy_to_model(context)
     ctx = x if context is None else context
     if kv is not None:
         q = linear(p["to_q"], x)
@@ -121,8 +152,8 @@ def cross_attention_apply(p, x, context=None, *, n_heads: int, kv=None):
             q = q + linear(lp["q_up"], linear(lp["q_down"], x))
     elif context is None and "to_qkv" in p:
         if "lora" not in p:
-            out = dot_product_attention_qkv(linear(p["to_qkv"], x), n_heads)
-            return linear(p["to_out"], out)
+            out = dot_product_attention_qkv(linear(p["to_qkv"], x), heads)
+            return _row_linear(p["to_out"], out, split)
         q, k, v = linear(p["to_qkv"], x).chunk(3, dim=-1)
     elif context is not None and "to_kv" in p:
         q = linear(p["to_q"], x)
@@ -136,13 +167,12 @@ def cross_attention_apply(p, x, context=None, *, n_heads: int, kv=None):
         q = q + linear(lp["q_up"], linear(lp["q_down"], x))
         k = k + linear(lp["k_up"], linear(lp["k_down"], ctx))
         v = v + linear(lp["v_up"], linear(lp["v_down"], ctx))
-    b, n, inner = q.shape
-    d_head = inner // n_heads
-    q = q.reshape(b, n, n_heads, d_head)
-    k = k.reshape(b, k.shape[1], n_heads, d_head)
-    v = v.reshape(b, v.shape[1], n_heads, d_head)
+    b, n, _ = q.shape
+    q = q.reshape(b, n, heads, d_head)
+    k = k.reshape(b, k.shape[1], heads, d_head)
+    v = v.reshape(b, v.shape[1], heads, d_head)
     out = dot_product_attention(q, k, v).reshape(b, n, inner)
-    final = linear(p["to_out"], out)
+    final = _row_linear(p["to_out"], out, split)
     if "lora" in p:
         final = final + linear(p["lora"]["o_up"], linear(p["lora"]["o_down"], out))
     return final
@@ -197,15 +227,23 @@ def fuse_attention_params(params):
     return walk(params)
 
 
-def init_feedforward(init: Init, dim, mult=4):
+FF_MULT = 4  # the feed-forward's inner width over dim
+
+
+def init_feedforward(init: Init, dim, mult=FF_MULT):
     inner = dim * mult
     return {"proj": linear_init(init, dim, inner * 2),  # GEGLU
             "out": linear_init(init, inner, dim)}
 
 
 def feedforward_apply(p, x):
+    """GEGLU feed-forward; proj is [a | gate] (locally [a_r | gate_r] under
+    tensor parallelism)."""
+    split = tp.is_split(p["out"]["w"].shape[0], FF_MULT * x.shape[-1])
+    if split:
+        x = tp.copy_to_model(x)
     a, gate = linear(p["proj"], x).chunk(2, dim=-1)
-    return linear(p["out"], a * gelu(gate))
+    return _row_linear(p["out"], a * gelu(gate), split)
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +287,8 @@ def _reference_attn(p, cams, context_ref, context, prev_weights,
     """
     dd_b = 0
     if (isinstance(context_ref, CompactRefTokens) and context_ref.copies == 3
-            and context_ref.shared_cams and mask_ref is None and draws is None
+            and context_ref.shared_cams and context_ref.rows is None
+            and mask_ref is None and draws is None
             and os.environ.get("CD360_CFG3_DEDUPE", "1") != "0"):
         dd_b = context_ref.batch
         context_ref = CompactRefTokens(context_ref.zero, context_ref.chosen, dd_b, 2)
@@ -269,7 +308,7 @@ def _reference_attn(p, cams, context_ref, context, prev_weights,
         feats = feats.reshape(b, hw * s, c)
         feats = feats + cross_attention_apply(
             p["attn2"], layer_norm(p["norm2"], feats.to(cdt)), context.to(cdt),
-            n_heads=cfg.n_heads,
+            n_heads=cfg.n_heads, d_head=cfg.d_head,
         ).float()
         feats = feats.reshape(b, hw, s, c)
         sigma = trunc_exp(nout["sigma"])
@@ -303,9 +342,9 @@ def transformer_block_apply(p, x, context, cfg: TransformerConfig, d: int, *,
     v); draws: the render's training draws. Returns (x, aux) with aux =
     dict(fg_mask, prev_weights, alphas, rgb, rendered)."""
     x = cross_attention_apply(p["attn1"], layer_norm(p["norm1"], x), None,
-                              n_heads=cfg.n_heads) + x
+                              n_heads=cfg.n_heads, d_head=cfg.d_head) + x
     x = cross_attention_apply(p["attn2"], layer_norm(p["norm2"], x), context,
-                              n_heads=cfg.n_heads, kv=ctx_kv) + x
+                              n_heads=cfg.n_heads, kv=ctx_kv, d_head=cfg.d_head) + x
 
     aux = dict(fg_mask=None, prev_weights=prev_weights, alphas=None, rgb=None,
                rendered=None)

@@ -26,6 +26,17 @@ The options follow the JAX optimizer chain (``make_optimizer``):
   not move in between. ``TrainState.step`` counts calls;
 * ``lr_schedule``: each group's lr is base x schedule(n) for its n-th
   applied update (n from 0), set just before ``optimizer.step()``.
+
+Data parallelism (``Trainer(data_group=...)``, a process group, e.g.
+``torch.distributed.group.WORLD``): right after the backward the trainable
+gradients are replaced by their mean over the group's ranks, one flat
+all-reduce per optimizer group, before ``grad_norm``, the MultiSteps mean
+and the clipping, which all see the global gradient as in the JAX package:
+the gradient of the global batch's mean loss when every rank has the same
+number of rows (the fg / bg / rgb terms are divided by the mean of the
+ranks' counts of items that kept their references, ``Engine.training_loss
+(data_group=)``). The loss terms in the metrics are averaged over the ranks
+too. Every rank must call ``train_step`` the same number of times.
 """
 from __future__ import annotations
 
@@ -120,9 +131,10 @@ class TrainState(NamedTuple):
 class Trainer:
     """One optimizer step around an Engine's training loss."""
 
-    def __init__(self, engine, cfg: TrainConfig = TrainConfig()):
+    def __init__(self, engine, cfg: TrainConfig = TrainConfig(), data_group=None):
         self.engine = engine
         self.cfg = cfg
+        self.data_group = data_group
         self.labels = None
 
     def init_state(self, params) -> TrainState:
@@ -159,14 +171,24 @@ class Trainer:
         cfg = self.cfg
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        loss, metrics = self.engine.training_loss(state.params, batch, state.step, draws)
+        loss, metrics = self.engine.training_loss(state.params, batch, state.step, draws,
+                                                  data_group=self.data_group)
         loss.backward()
         leaves = self.trainable(state)
         for leaf in leaves:
             if leaf.grad is None:
                 leaf.grad = torch.zeros_like(leaf)
-        grad_norm = _global_norm([leaf.grad for leaf in leaves])
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.data_group is not None:
+            from ..parallel.mesh import all_reduce_mean
+
+            for group in opt.param_groups:
+                all_reduce_mean([p.grad for p in group["params"]], self.data_group)
+            names = sorted(metrics)
+            mean = all_reduce_mean([torch.stack([metrics[k].float() for k in names])],
+                                   self.data_group)[0]
+            metrics = dict(zip(names, mean.unbind()))
+        grad_norm = _global_norm([leaf.grad for leaf in leaves])
         metrics["grad_norm"] = grad_norm
         accum = dict(state.accum)
         k = cfg.accumulate_grad_batches

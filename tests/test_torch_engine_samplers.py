@@ -10,10 +10,13 @@ samplers get the per-step draws of the JAX engine's key split
 (``cache_nerf=False``), and that route against the cached one. f32; tolerance 1e-5 relative to the output scale (the slice-1
 standard), 2e-4 between the cached and uncached routes (JAX's own
 test_euler_fast_path_equals_generic_route bound)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from custom_diffusion360_tpu.diffusion import scheduled_cfg_img_text_ref as JGuider3
 from custom_diffusion360_tpu.diffusion import vanilla_cfg_img_ref as JGuider2
@@ -144,3 +147,63 @@ def test_uncached_route_equals_cached(setup, sampler):
     uncached = run_port(setup, 3, sampler, cache_nerf=False)
     scale = max(1.0, float(cached.abs().max()))
     assert max_err(uncached, cached) < 2e-4 * scale
+
+
+def test_churn_differs_between_the_cached_and_uncached_euler_routes(setup):
+    """States a case that both packages share (ROADMAP.md Queue 3), as
+    tests/test_torch_tokenizer.py states the tokenizer's: with the render
+    cached, Euler's step 0 is the render pass's own evaluation, without
+    churn, and its loop runs on sigmas[1:], so each later step churns by
+    min(s_churn / (n - 1), sqrt(2) - 1); without the cache every one of the
+    n steps churns by min(s_churn / n, sqrt(2) - 1) (JAX engine.py:415-422,
+    port engine.py). At s_churn = 2.5 and 8 steps that is 0.357 against
+    0.3125: the packages agree on each route, the routes differ; at
+    s_churn = 0 the port's routes agree (the JAX package's, in its
+    test_euler_fast_path_equals_generic_route)."""
+    from custom_diffusion360_tpu.diffusion import sampling as jsampling
+    from custom_diffusion360_tpu.diffusion.discretization import legacy_ddpm_sigmas as jsig
+    from custom_diffusion360_torch.diffusion import sampling as tsampling
+    from custom_diffusion360_torch.diffusion.discretization import legacy_ddpm_sigmas
+
+    steps, noise = 8, setup[5]
+    params, refs, cams, cond, uc, _ = setup
+    jcfg, tcfg = _cfgs()
+    for churn in (2.5, 0.0):
+        jc = dataclasses.replace(jcfg, sampler=jsampling.SamplerConfig(s_churn=churn))
+        tc = dataclasses.replace(tcfg, sampler=tsampling.SamplerConfig(s_churn=churn))
+        routes = {}
+        for cache in (True, False):
+            rows = steps - 1 if cache else steps  # Euler's loop steps on this route
+            z_t = Engine(tc, device="cpu").sample(
+                to_torch(params), {k: t(v) for k, v in cond.items()},
+                {k: t(v) for k, v in uc.items()}, GUIDERS[2][1], noise=t(noise),
+                cams=Cameras(*(t(c) for c in cams[2])),
+                references={a: {d: t(v) for d, v in dd.items()} for a, dd in refs.items()},
+                choices=np.arange(NREF), num_steps=steps, cache_nerf=cache,
+                draws=Draws(given={"step_noise": t(jax_step_noise(KEY, rows, noise.shape))}))
+            routes[cache] = z_t.numpy()
+            if not churn:
+                continue
+            z_j = np.asarray(JEngine(jc).sample(
+                jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, cond),
+                jax.tree.map(jnp.asarray, uc), GUIDERS[2][0], KEY, shape=noise.shape,
+                cams=JCams(*(jnp.asarray(c) for c in cams[2])),
+                references=jax.tree.map(jnp.asarray, refs), choices=np.arange(NREF),
+                num_steps=steps, noise=jnp.asarray(noise), cache_nerf=cache))
+            assert _rel(z_t, z_j), (cache, max_err(z_t, z_j))
+        scale = max(1.0, float(np.abs(routes[True]).max()))
+        gap = max_err(routes[True], routes[False])
+        if churn:
+            assert gap > 1e-2 * scale, gap
+        else:
+            assert gap < 2e-4 * scale, gap
+    cfg = tsampling.SamplerConfig(s_churn=2.5)
+    sig = legacy_ddpm_sigmas(steps)
+    g_cached, g_full = tsampling._gammas(sig[1:], cfg), tsampling._gammas(sig, cfg)
+    assert torch.allclose(g_cached, torch.full((steps - 1,), 2.5 / (steps - 1)))
+    assert torch.allclose(g_full, torch.full((steps,), 2.5 / steps))
+    jcfg_s = jsampling.SamplerConfig(s_churn=2.5)
+    np.testing.assert_allclose(np.asarray(jsampling._gammas(jsig(steps)[1:], jcfg_s)),
+                               g_cached.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(jsampling._gammas(jsig(steps), jcfg_s)),
+                               g_full.numpy(), rtol=1e-6)

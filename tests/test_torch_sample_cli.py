@@ -249,7 +249,7 @@ def test_cli_refuses_cuda_without_a_card():
         cli.main(["--smoke", "--num_images", "1"])
 
 
-def test_cli_flags_match_jax():
+def test_cli_flags_match_jax(tmp_path, monkeypatch):
     from custom_diffusion360_tpu.cli import sample as jcli
 
     def flags(parser):
@@ -258,8 +258,15 @@ def test_cli_flags_match_jax():
     want, got = flags(jcli.build_parser()), flags(cli.build_parser())
     assert set(got) - set(want) == {"device", "config"}
     assert {k: got[k] for k in want} == want
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 4"):
-        cli.main(["--smoke", "--device", "cpu", "--latency_shard"])
+    # --latency_shard without a process group (no torchrun environment)
+    # samples as without it, as the JAX CLI does on one device
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    argv = ["--smoke", "--device", "cpu", "--dtype", "float32", "--num_steps", "2",
+            "--num_images", "1", "--resolution", "64"]
+    (plain,) = cli.main(argv + ["--output_dir", str(tmp_path / "a")])
+    (shard,) = cli.main(argv + ["--output_dir", str(tmp_path / "b"), "--latency_shard"])
+    np.testing.assert_array_equal(shard["images"], plain["images"])
+    assert len(shard["paths"]) == 1
 
 
 DETERMINISTIC = ("euler_edm", "heun_edm", "dpmpp2m", "lms")

@@ -94,9 +94,10 @@ def _tcams(jc):
     return Cameras(*(t(np.asarray(f)) for f in jc))
 
 
-def _batch():
-    rng = np.random.default_rng(0)
-    jc = random_cameras((1 + N) * B, seed=2).reshape(B, 1 + N)
+def _batch(B=B, seed=0):
+    """(JAX batch, port batch) of B rows from rng(seed)."""
+    rng = np.random.default_rng(seed)
+    jc = random_cameras((1 + N) * B, seed=2 + seed).reshape(B, 1 + N)
     opacity = (rng.uniform(size=(B, RES, RES, 1)) > 0.5).astype(np.float32)
     batch = {
         "image": rng.normal(size=(B, RES, RES, 3)).astype(np.float32) * 0.2,
@@ -121,20 +122,20 @@ def _batch():
     return jbatch, tbatch
 
 
-def replay_draws(key, lat=RES // 8):
+def replay_draws(key, lat=RES // 8, b=B):
     """The draws of Engine.training_loss's key splits (engine.py:151,
-    loss.py:84-95, denoiser.py:98-104, vae.py:253), as numpy arrays under
-    the port's draw names."""
+    loss.py:84-95, denoiser.py:98-104, vae.py:253) for a batch of ``b``
+    rows, as numpy arrays under the port's draw names."""
     k_enc, k_encr, k_loss = jax.random.split(key, 3)
     k_sig, k_noise, k_sigref, k_noiseref, k_noiseref2, _ = jax.random.split(k_loss, 6)
-    z, zr = (B, lat, lat, 4), (B, N, lat, lat, 4)
-    u = jax.random.uniform(k_sig, (B,))
+    z, zr = (b, lat, lat, 4), (b, N, lat, lat, 4)
+    u = jax.random.uniform(k_sig, (b,))
     return {
         "vae_eps": jax.random.normal(k_enc, z),
-        "vae_eps_ref": jax.random.normal(k_encr, (B * N, lat, lat, 4)),
+        "vae_eps_ref": jax.random.normal(k_encr, (b * N, lat, lat, 4)),
         "sigma_idx": ((1.0 - u**3) * 999).astype(jnp.int32),
         "noise": jax.random.normal(k_noise, z),
-        "sigma_ref_idx": jax.random.randint(k_sigref, (B,), 0, 50),
+        "sigma_ref_idx": jax.random.randint(k_sigref, (b,), 0, 50),
         "noise_ref": jax.random.normal(k_noiseref, zr),
         "noise_ref2": jax.random.normal(k_noiseref2, zr),
     }

@@ -534,9 +534,15 @@ def test_train_cli_profiles_steps_and_rewrites_nothing_on_resume(tmp_path):
 @pytest.mark.parametrize("flags", [["--num_processes", "2"], ["--process_id", "0"],
                                    ["--multihost"], ["--coordinator", "localhost:1234"]],
                          ids=["num_processes", "process_id", "multihost", "coordinator"])
-def test_train_cli_refuses_unported_flags(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 4"):
+def test_train_cli_refuses_unported_flags(flags, tmp_path, monkeypatch):
+    """The multi-host flags are ported (tests/test_torch_parallel_train.py
+    runs them on two ranks); what is refused is a rendezvous flag without
+    --multihost, and --multihost with no rendezvous (no --coordinator and
+    no torchrun environment), rather than training alone."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="--multihost"):
         tcli.main(["--smoke", "--device", "cpu", "--output_dir", str(tmp_path), *flags])
+    assert not os.path.exists(tmp_path / "metrics.csv")
 
 
 @pytest.mark.parametrize("every,increase", [(0, True), (1, False), (4, False), (4, True),
