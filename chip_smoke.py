@@ -77,8 +77,22 @@ Phases:
      Engine.sample at the [main] configuration for 4 steps on
      tensor-parallel slices (the world as the model group) and with the
      CFG rows over the world (cfg_group), latents within 1e-3 of
-     max|plain|. Counters zeroed before the first run and read after the
-     last (path "parallel"); the group is destroyed after it;
+     max|plain|; and Engine.sample at that configuration on a 1 x 1 (cfg,
+     view) grid from new_groups_2d with cfg_group and view_group both set
+     (the view-sharded render), its latent within 1e-3 of max|plain| and
+     its render step's time beside the plain one's. Counters zeroed before
+     the first run and read after the last (path "parallel"); the group is
+     destroyed after it;
+  5e. the evaluation CLI as users run it (custom_diffusion360_torch.cli.
+     evaluate main(), in process) at full width with random weights from
+     seeds: pytorch_fid-named InceptionV3 and open_clip ViT-H/14 (vision and
+     text tower) checkpoints, a synthetic BPE merges file and 32 + 32 512^2
+     PNGs written to a temp dir; FID (299^2), CLIP-T and CLIP-I (224^2) at
+     batch 8, then the generated set against itself: FID 0 within 1e-3,
+     CLIP-I 1 within 1e-4. Prints each checkpoint's load time, images/s
+     through Inception and the vision tower, the Frechet distance's host
+     time and the scores. Counters zeroed before and read after (path
+     "evaluate");
   6. small configurations run twice, on the card through the kernels (bf16)
      and on the CPU through the plain versions (f32): a 3-step sample +
      decode, whose latent and image must agree, a 3-step x3 CLI sample
@@ -86,13 +100,17 @@ Phases:
      step, whose loss and trainable gradients must agree, a capture of
      reference features, whose buffers must agree, a 3-step sample with
      each of the six samplers, an 8-step log_images, whose every image must
-     agree, and a 3-step samplemulti.
+     agree, and a 3-step samplemulti; then the evaluation's towers in
+     float32 (Inception with cuDNN's TF32 off; small CLIP vision and text
+     towers): pool3 features, the image embedding, CLIP-T and CLIP-I within
+     1e-3 of max|ref|.
 
 ``ms`` is a call's time with the host in it (events around many calls in
 a row), as the main paths pay it; ``device_ms`` is the kernel's own.
 
 Every kernel must launch on a main path (the bilinear backward on the
-training paths, conv3x3 and the bnhd route on the CLI paths), and every shape
+training paths, conv3x3 and the bnhd route on the CLI paths, LayerNorm on
+the evaluation path), and every shape
 a main path launched must have passed phase 2. Prints the card's name and
 power limit first, a JSON line per main path, per kernel source and path
 the sums over the timed run's launches of device time, library device time
@@ -261,6 +279,10 @@ BILINEAR_CASES = [
     ("ds2 pose block", 16, 64, 648, 641, 98304, "bf16"),
     ("ds4 pose block", 16, 32, 1288, 1281, 24576, "bf16"),
     ("ds2 unpadded odd C", 16, 64, 641, 641, 98304, "bf16"),
+    # a rank's share of a 4-way view split of the x2 render (2 rows x 2 of
+    # the 8 views), which a one-rank world cannot launch
+    ("ds2 pose block, 4-way view split", 4, 64, 648, 641, 98304, "bf16"),
+    ("ds4 pose block, 4-way view split", 4, 32, 1288, 1281, 24576, "bf16"),
 ]
 BILINEAR_TOL = 1e-2  # relative to max|ref|: one bf16 rounding of the output
 # f32 kernels vs their f32 plain versions: the same sums in another order
@@ -1734,9 +1756,14 @@ def run_parallel_path(torch, counters, dev="cuda"):
        --latency_shard; the images must agree within 1 of 255;
     3. Engine.sample at the [main] configuration for PARALLEL_SAMPLE_STEPS
        steps: plain, on tensor-parallel slices with the world as the model
-       group (every to_out and ff out through an all-reduce), and with the
-       CFG rows over the world (cfg_group, the latency path's all-gather);
-       each latent within PARALLEL_LATENT_RTOL of max|plain|.
+       group (every to_out and ff out through an all-reduce), with the
+       CFG rows over the world (cfg_group, the latency path's all-gather),
+       and on a 1 x 1 (cfg, view) grid from new_groups_2d with cfg_group and
+       view_group both set (the view-sharded render: the pose blocks' view
+       softmax, pool and density through all-reduces); each latent within
+       PARALLEL_LATENT_RTOL of max|plain|, and the render step's time (to
+       the sampler's first callback) of the view-grouped run beside the
+       plain one's.
     The counters are zeroed just before step 1 and read after step 3; the
     process group is destroyed at the end. Returns (launches, by_shape)."""
     import csv
@@ -1750,7 +1777,12 @@ def run_parallel_path(torch, counters, dev="cuda"):
     from custom_diffusion360_torch.diffusion.guiders import vanilla_cfg_img_ref
     from custom_diffusion360_torch.engine import Engine
     from custom_diffusion360_torch.models.unet import UNetConfig
-    from custom_diffusion360_torch.parallel import shard_params_tp, tensor_parallel
+    from custom_diffusion360_torch.parallel import (
+        barrier,
+        new_groups_2d,
+        shard_params_tp,
+        tensor_parallel,
+    )
 
     def sync():
         if dev == "cuda":
@@ -1856,15 +1888,36 @@ def run_parallel_path(torch, counters, dev="cuda"):
             sync()
             return z, time.perf_counter() - t0
 
-        ref, ref_s = timed(lambda: eng.sample(params, cond, uc, guider, **kw))
+        def rendered(fn):
+            """fn(callback) -> (z, seconds, seconds to the render step's end:
+            the sampler's callback after step 0)"""
+            marks = []
+
+            def cb(i):
+                if i == 0:
+                    sync()
+                    marks.append(time.perf_counter())
+
+            sync()
+            t0 = time.perf_counter()
+            z, total = timed(lambda: fn(cb))
+            return z, total, marks[0] - t0
+
+        ref, ref_s, ref_render = rendered(
+            lambda cb: eng.sample(params, cond, uc, guider, callback=cb, **kw))
         local = shard_params_tp(params, dist.get_world_size(group), dist.get_rank(group))
         with tensor_parallel(group):
             z_tp, tp_s = timed(lambda: eng.sample(local, cond, uc, guider, **kw))
         del local
         z_cfg, cfg_s = timed(lambda: eng.sample(params, cond, uc, guider, cfg_group=group, **kw))
+        cfg_g, view_g = new_groups_2d(1, 1)
+        barrier(cfg_g)  # a new group's communicator comes up at its first collective
+        barrier(view_g)
+        z_view, view_s, view_render = rendered(lambda cb: eng.sample(
+            params, cond, uc, guider, cfg_group=cfg_g, view_group=view_g, callback=cb, **kw))
         scale = float(ref.abs().max())
         errs = {}
-        for tag, z in (("tp", z_tp), ("cfg_group", z_cfg)):
+        for tag, z in (("tp", z_tp), ("cfg_group", z_cfg), ("view_group", z_view)):
             errs[tag] = float((z - ref).abs().max())
             ok = bool(torch.isfinite(z).all()) and errs[tag] <= PARALLEL_LATENT_RTOL * scale
             if not ok:
@@ -1872,11 +1925,18 @@ def run_parallel_path(torch, counters, dev="cuda"):
                                 f"(max|plain| {scale})")
         log(f"[parallel] Engine.sample [main] config, {PARALLEL_SAMPLE_STEPS} steps: plain "
             f"{ref_s:.2f} s, tensor-parallel (model group of 1) {tp_s:.2f} s, max difference "
-            f"{errs['tp']:.4g}; cfg_group {cfg_s:.2f} s, max difference {errs['cfg_group']:.4g} "
-            f"(max|plain| {scale:.4g}, limit {PARALLEL_LATENT_RTOL:g} of it)")
+            f"{errs['tp']:.4g}; cfg_group {cfg_s:.2f} s, max difference {errs['cfg_group']:.4g}; "
+            f"cfg_group + view_group (1 x 1 grid) {view_s:.2f} s, max difference "
+            f"{errs['view_group']:.4g} (max|plain| {scale:.4g}, limit {PARALLEL_LATENT_RTOL:g} "
+            f"of it)")
+        log(f"[parallel] render step (step 0, to its callback): plain {1e3 * ref_render:.1f} ms, "
+            f"view_group {1e3 * view_render:.1f} ms")
         report["engine"] = {"plain_s": ref_s, "tp_s": tp_s, "cfg_group_s": cfg_s,
-                            "tp_max_err": errs["tp"], "cfg_group_max_err": errs["cfg_group"],
-                            "scale": scale}
+                            "view_group_s": view_s, "tp_max_err": errs["tp"],
+                            "cfg_group_max_err": errs["cfg_group"],
+                            "view_group_max_err": errs["view_group"], "scale": scale,
+                            "render_ms": {"plain": 1e3 * ref_render,
+                                          "view_group": 1e3 * view_render}}
         del params, eng
     finally:
         from custom_diffusion360_torch.engine import Engine as _Engine
@@ -1898,6 +1958,251 @@ def run_parallel_path(torch, counters, dev="cuda"):
     print(json.dumps({"parallel_path": report}), flush=True)
     if problems:
         raise RuntimeError("parallel path: " + "; ".join(problems))
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return launches, by_shape
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the evaluation CLI at full width
+# ---------------------------------------------------------------------------
+
+EVAL_IMAGES, EVAL_SIZE, EVAL_BATCH = 32, 512, 8
+EVAL_PROMPT = "photo of a <new1> car"
+# a synthetic BPE merges file (no vocabulary file in the repo): enough
+# merges to spell the prompt's words
+EVAL_MERGES = ["p h", "o t", "ph ot", "ph ot o</w>", "o f</w>", "c a", "ca r</w>", "a </w>"]
+EVAL_SELF_FID_TOL = 1e-3  # FID of a set against itself, absolute
+EVAL_SELF_CLIP_I_TOL = 1e-4  # CLIP-I of a set against itself, from 1
+
+
+def write_eval_files(torch, d, dev):
+    """Under ``d``: pytorch_fid InceptionV3 names (``inception.pth``), open_clip
+    ViT-H/14 names, ``visual.*`` and the text tower at the root, in one
+    file (``open_clip_vit_h14.pth``), random weights drawn on ``dev`` from
+    seeds; the merges file under the CLI's name (``vocab/``); and
+    EVAL_IMAGES "generated" and EVAL_IMAGES "real" EVAL_SIZE^2 PNGs of
+    seeded noise (the real ones darker). Returns the paths by name."""
+    import gzip
+
+    import numpy as np
+
+    from custom_diffusion360_torch.cli.evaluate import VIT_H14_TEXT
+    from custom_diffusion360_torch.cli.sample import write_png
+    from custom_diffusion360_torch.eval.inception import _STEM, _TORCH_NAMES, BLOCKS
+    from custom_diffusion360_torch.models.clip import ClipVisionConfig
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(*shape, std):
+        return (torch.randn(shape, generator=gen, device=dev) * std).cpu()
+
+    inc = {}
+
+    def conv(prefix, cin, cout, kh, kw):
+        # He scaling: the features keep their size through the ReLUs
+        inc[prefix + ".conv.weight"] = randn(cout, cin, kh, kw,
+                                             std=(2.0 / (cin * kh * kw)) ** 0.5)
+        inc[prefix + ".bn.weight"] = 1.0 + randn(cout, std=0.1)
+        inc[prefix + ".bn.bias"] = randn(cout, std=0.1)
+        inc[prefix + ".bn.running_mean"] = randn(cout, std=0.1)
+        inc[prefix + ".bn.running_var"] = 1.0 + randn(cout, std=0.1).abs()
+
+    for name, cin, cout, (kh, kw), _, _ in _STEM:
+        conv(name, cin, cout, kh, kw)
+    for bname, kind, spec in BLOCKS:
+        for branch, convs in spec.items():
+            for tname, (cin, cout, (kh, kw), _, _) in zip(_TORCH_NAMES[kind][branch], convs):
+                conv(f"{bname}.{tname}", cin, cout, kh, kw)
+
+    clip = {}
+
+    def put(name, *shape, std=None):
+        clip[name] = randn(*shape, std=std if std is not None else shape[-1] ** -0.5)
+
+    def norm(prefix, width):
+        clip[prefix + ".weight"] = 1.0 + randn(width, std=0.1)
+        clip[prefix + ".bias"] = randn(width, std=0.1)
+
+    def blocks(prefix, width, layers):
+        for i in range(layers):
+            pre = f"{prefix}transformer.resblocks.{i}"
+            norm(pre + ".ln_1", width)
+            norm(pre + ".ln_2", width)
+            put(pre + ".attn.in_proj_weight", 3 * width, width)
+            put(pre + ".attn.in_proj_bias", 3 * width, std=0.02)
+            put(pre + ".attn.out_proj.weight", width, width)
+            put(pre + ".attn.out_proj.bias", width, std=0.02)
+            put(pre + ".mlp.c_fc.weight", 4 * width, width)
+            put(pre + ".mlp.c_fc.bias", 4 * width, std=0.02)
+            put(pre + ".mlp.c_proj.weight", width, 4 * width)
+            put(pre + ".mlp.c_proj.bias", width, std=0.02)
+
+    v, t = ClipVisionConfig(), VIT_H14_TEXT
+    put("visual.conv1.weight", v.width, 3, v.patch_size, v.patch_size, std=0.02)
+    put("visual.class_embedding", v.width)
+    put("visual.positional_embedding", v.grid ** 2 + 1, v.width)
+    norm("visual.ln_pre", v.width)
+    norm("visual.ln_post", v.width)
+    put("visual.proj", v.width, v.embed_dim)
+    blocks("visual.", v.width, v.layers)
+    put("token_embedding.weight", t.vocab_size, t.width, std=0.02)
+    put("positional_embedding", t.context_length, t.width, std=0.01)
+    norm("ln_final", t.width)
+    put("text_projection", t.width, t.width)
+    blocks("", t.width, t.layers)
+
+    paths = {"inception": os.path.join(d, "inception.pth"),
+             "clip": os.path.join(d, "open_clip_vit_h14.pth"), "vocab": os.path.join(d, "vocab"),
+             "generated": os.path.join(d, "generated"), "real": os.path.join(d, "real")}
+    torch.save(inc, paths["inception"])
+    torch.save(clip, paths["clip"])
+    os.makedirs(paths["vocab"])
+    with gzip.open(os.path.join(paths["vocab"], "bpe_simple_vocab_16e6.txt.gz"), "wt") as f:
+        f.write("\n".join(["#version: synthetic"] + EVAL_MERGES) + "\n")
+    rng = np.random.default_rng(32)
+    for name, lo, hi in (("generated", 64, 256), ("real", 0, 192)):
+        os.makedirs(paths[name])
+        for i in range(EVAL_IMAGES):
+            img = rng.integers(lo, hi, (EVAL_SIZE, EVAL_SIZE, 3)).astype(np.uint8)
+            write_png(os.path.join(paths[name], f"{i:03d}.png"), img)
+    paths["sizes_mb"] = {k: os.path.getsize(paths[k]) / 1e6 for k in ("inception", "clip")}
+    return paths
+
+
+def run_evaluate_path(torch, counters, dev="cuda"):
+    """custom_diffusion360_torch.cli.evaluate.main in process at full width
+    with random weights (write_eval_files): InceptionV3 at 299^2, the
+    ViT-H/14 vision tower at 224^2 and the open_clip ViT-H/14 text tower,
+    --batch EVAL_BATCH, all three metrics (FID, CLIP-T, CLIP-I) on 32
+    generated against 32 real 512^2 PNGs; then again with the generated
+    set as the real one: its FID must be 0 within EVAL_SELF_FID_TOL and its
+    CLIP-I 1 within EVAL_SELF_CLIP_I_TOL. Prints each checkpoint's load
+    time (read, convert, to the card), images/s through Inception (with its
+    resize) and through the vision tower, the host time of the Frechet
+    distance, and the scores. Counters zeroed just before the first run and
+    read after the second (path "evaluate")."""
+    import copy
+    import importlib
+    import tempfile
+
+    from custom_diffusion360_torch.cli import evaluate as cli_eval
+
+    # the module (eval/__init__.py exports its function clip_score by that name)
+    clip_mod = importlib.import_module("custom_diffusion360_torch.eval.clip_score")
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.time()
+    stats = {"read_s": [], "convert_s": {}, "to_card_s": [], "fid_host_s": [],
+             "inception": [], "vision": []}  # per call (images, s)
+
+    def timed(fn, record):
+        def call(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            record(a, time.perf_counter() - t0)
+            return out
+        return call
+
+    def images(key):
+        def record(a, sec):
+            stats[key].append((a[1].shape[0], sec))
+        return record
+
+    patches = {
+        (cli_eval, "load_torch_state_dict"): lambda a, sec: stats["read_s"].append(
+            (os.path.basename(a[0]), sec)),
+        (cli_eval, "load_inception_torch"): lambda a, sec: stats["convert_s"].update(
+            inception=sec),
+        (cli_eval, "load_clip_vision_torch"): lambda a, sec: stats["convert_s"].update(
+            clip_vision=sec),
+        (cli_eval, "convert_open_clip_state_dict"): lambda a, sec: stats["convert_s"].update(
+            clip_text=sec),
+        (cli_eval, "_to"): lambda a, sec: stats["to_card_s"].append(sec),
+        (cli_eval, "fid_from_stats"): lambda a, sec: stats["fid_host_s"].append(sec),
+        (cli_eval, "inception_pool3_features"): images("inception"),
+        (clip_mod, "clip_vision_apply"): images("vision"),
+    }
+    saved = {key: getattr(*key) for key in patches}
+    for c in counters.values():
+        c.launches = 0
+        c.launches_by_shape.clear()
+    try:
+        for (mod, name), record in patches.items():
+            setattr(mod, name, timed(saved[(mod, name)], record))
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.time()
+            paths = write_eval_files(torch, d, dev)
+            log(f"[evaluate] wrote {EVAL_IMAGES} + {EVAL_IMAGES} {EVAL_SIZE}^2 PNGs, inception "
+                f"{paths['sizes_mb']['inception']:.1f} MB, open_clip ViT-H/14 "
+                f"{paths['sizes_mb']['clip']:.1f} MB in {time.time() - t0:.1f} s")
+            common = ["--inception_ckpt", paths["inception"], "--clip_vision_ckpt",
+                      paths["clip"], "--batch", str(EVAL_BATCH), "--device", dev]
+            t0 = time.perf_counter()
+            scores = cli_eval.main(["--generated", paths["generated"], "--real", paths["real"],
+                                    "--prompt", EVAL_PROMPT, "--clip_text_ckpt", paths["clip"],
+                                    "--vocab_dir", paths["vocab"],
+                                    "--output", os.path.join(d, "metrics.json")] + common)
+            main_s = time.perf_counter() - t0
+            with open(os.path.join(d, "metrics.json")) as f:
+                written = json.load(f)
+            run1 = copy.deepcopy(stats)
+            self_scores = cli_eval.main(["--generated", paths["generated"], "--real",
+                                         paths["generated"]] + common)
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    launches = {k: c.launches for k, c in counters.items()}
+    by_shape = {(k, shape): n for k, c in counters.items()
+                for shape, n in c.launches_by_shape.items()}
+    rates = {}
+    for key in ("inception", "vision"):
+        calls = run1[key]
+        n, sec = sum(c[0] for c in calls), sum(c[1] for c in calls)
+        # warm: the median call of both runs after each run's first
+        warm = statistics.median(c[1] for c in calls[1:] + stats[key][len(calls) + 1:])
+        rates[key] = {"images": n, "s": sec, "images_per_s": n / sec, "first_call_s": calls[0][1],
+                      "warm_call_s": warm, "warm_images_per_s": EVAL_BATCH / warm}
+    inc_n, vis_n = rates["inception"]["images"], rates["vision"]["images"]
+    report = {"scores": scores, "self_scores": self_scores, "main_s": main_s,
+              "read_s": run1["read_s"], "convert_s": run1["convert_s"],
+              "to_card_s": run1["to_card_s"], "fid_host_s": run1["fid_host_s"],
+              "rates": rates, "launches": launches, "wall_s": time.time() - t_phase}
+    for name, sec in run1["read_s"]:
+        log(f"[evaluate] torch.load {name}: {sec:.2f} s")
+    log(f"[evaluate] convert {json.dumps({k: round(v, 3) for k, v in run1['convert_s'].items()})}"
+        f" s; to the card {', '.join(f'{x:.3f}' for x in run1['to_card_s'])} s")
+    for key, what in (("inception", "Inception (resize to 299^2 + pool3)"),
+                      ("vision", "ViT-H/14 vision tower (224^2, 257 tokens)")):
+        r = rates[key]
+        log(f"[evaluate] {what}, batch {EVAL_BATCH}: first run {r['images']} images in "
+            f"{r['s']:.3f} s, {r['images_per_s']:.1f} images/s (its first call "
+            f"{1e3 * r['first_call_s']:.1f} ms); warm call (median) {1e3 * r['warm_call_s']:.2f} "
+            f"ms, {r['warm_images_per_s']:.1f} images/s")
+    log(f"[evaluate] Frechet distance (2048-d, host numpy float64): "
+        f"{', '.join(f'{x:.3f}' for x in run1['fid_host_s'])} s; main() {main_s:.1f} s")
+    log(f"[evaluate] scores {json.dumps(scores)}; the generated set against itself "
+        f"{json.dumps(self_scores)} (FID limit {EVAL_SELF_FID_TOL:g}, CLIP-I limit 1 +- "
+        f"{EVAL_SELF_CLIP_I_TOL:g})")
+    log(f"[evaluate] launches {json.dumps(launches)}; phase wall {report['wall_s']:.1f} s")
+    print(json.dumps({"evaluate_path": report}), flush=True)
+    problems = []
+    if sorted(scores) != ["clip_i", "clip_t", "fid"] or written != scores or not all(
+            math.isfinite(x) for x in scores.values()):
+        problems.append(f"scores {scores} (written {written})")
+    if not abs(self_scores.get("fid", math.inf)) <= EVAL_SELF_FID_TOL:
+        problems.append(f"FID of a set against itself {self_scores.get('fid')}")
+    if not abs(self_scores.get("clip_i", math.inf) - 1.0) <= EVAL_SELF_CLIP_I_TOL:
+        problems.append(f"CLIP-I of a set against itself {self_scores.get('clip_i')}")
+    if inc_n != 2 * EVAL_IMAGES or vis_n != 3 * EVAL_IMAGES:  # the first run's
+        problems.append(f"{inc_n} images through Inception, {vis_n} through the vision tower")
+    if problems:
+        raise RuntimeError("evaluate path: " + "; ".join(problems))
     if dev == "cuda":
         torch.cuda.empty_cache()
     return launches, by_shape
@@ -2238,6 +2543,77 @@ def run_small_multi_check(torch):
         raise RuntimeError("small-config samplemulti on the card disagrees with the CPU")
 
 
+EVAL_SMALL_TOL = 1e-3  # of max|ref|: float32 on both sides, sums in other orders
+
+
+def run_small_eval_check(torch):
+    """The evaluation's towers at small sizes, float32, on the card through
+    the kernels (cuDNN with TF32 off for Inception, the LayerNorm kernel for
+    the CLIP towers) against the CPU through the plain versions, from the
+    same weights made on the CPU: Inception's pool3 features of two 64 x 48
+    images through the resize to 299^2 (its seeded kernels scaled by
+    sqrt(2)), and a CLIP vision tower (28^2, patch
+    14, width 160: two heads of 80, two layers) with a text tower (width 32,
+    two layers, 77 tokens): the pooled image embedding, CLIP-T and CLIP-I.
+    Each within EVAL_SMALL_TOL of max|ref|."""
+    from custom_diffusion360_torch.eval.clip_score import clip_image_similarity, clip_score
+    from custom_diffusion360_torch.eval.inception import (
+        inception_pool3_features,
+        init_inception_params,
+    )
+    from custom_diffusion360_torch.models.clip import (
+        ClipTextConfig,
+        ClipVisionConfig,
+        clip_vision_apply,
+        init_clip_text_params,
+        init_clip_vision_params,
+    )
+    from custom_diffusion360_torch.models.embedders import clip_image_preprocess
+    from custom_diffusion360_torch.ops.norms import layer_norm_fused
+
+    gen = torch.Generator().manual_seed(40)
+    imgs = torch.rand((2, 64, 48, 3), generator=gen)
+    a, b = torch.rand((2, 3, 40, 40, 3), generator=gen) * 2.0 - 1.0
+    tokens = torch.randint(1, 590, (3, 77), generator=gen)
+    vcfg = ClipVisionConfig(image_size=28, patch_size=14, width=160, layers=2, heads=2,
+                            embed_dim=32)
+    tcfg = ClipTextConfig(vocab_size=600, width=32, layers=2, heads=4, context_length=77,
+                          act="gelu", text_projection=True, num_modifier_tokens=0)
+    inception = init_inception_params(0, "cpu")
+    for bc in [v for v in inception.values() if "w" in v] + [
+            c for v in inception.values() if "w" not in v for c in v.values()]:
+        bc["w"] *= 2.0 ** 0.5  # He scaling: the activations keep their size through ReLUs
+    params = {"inception": inception,
+              "vision": init_clip_vision_params(vcfg, 1, "cpu"),
+              "text": init_clip_text_params(tcfg, 2, "cpu")}
+    outs = {}
+    before = layer_norm_fused.launches
+    for dev in ("cpu", "cuda"):
+        p = _map(params, lambda x: x.to(dev))
+        with torch.inference_mode():
+            outs[dev] = {
+                "inception pool3": inception_pool3_features(p["inception"], imgs.to(dev),
+                                                            normalize_input=True),
+                "vision pooled": clip_vision_apply(
+                    p["vision"], clip_image_preprocess(a.to(dev), vcfg.image_size), vcfg),
+                "CLIP-T": clip_score(p["vision"], p["text"], a.to(dev), tokens.to(dev), vcfg,
+                                     tcfg),
+                "CLIP-I": clip_image_similarity(p["vision"], a.to(dev), b.to(dev), vcfg),
+            }
+    ok = layer_norm_fused.launches > before
+    for what, ref in outs["cpu"].items():
+        got = outs["cuda"][what].float().cpu()
+        err = float((got - ref).abs().max())
+        tol = EVAL_SMALL_TOL * float(ref.abs().max())
+        ok &= got.shape == ref.shape and err <= tol
+        log(f"[small-eval] {what} {tuple(ref.shape)}: max-abs err cuda-f32 vs cpu-f32 "
+            f"{err:.4e} (tol {tol:.4e}, max|ref| {float(ref.abs().max()):.4f}) "
+            f"{'OK' if err <= tol else 'FAIL'}")
+    log(f"[small-eval] LayerNorm kernel launches on the card: {layer_norm_fused.launches - before}")
+    if not ok:
+        raise RuntimeError("small evaluation towers on the card disagree with the CPU")
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -2322,6 +2698,7 @@ def main():
     paths["samplers"] = run_samplers_path(torch, counters)
     paths["train_cli"] = run_train_cli_path(torch, counters)
     paths["parallel"] = run_parallel_path(torch, counters)
+    paths["evaluate"] = run_evaluate_path(torch, counters)
     check_launched(torch, results, {key for _, shapes in paths.values() for key in shapes})
     time_attention_backward(torch, grad_shapes)
     run_small_check(torch)
@@ -2331,6 +2708,7 @@ def main():
     run_small_sampler_check(torch)
     run_small_log_images_check(torch)
     run_small_multi_check(torch)
+    run_small_eval_check(torch)
 
     failed = [r["name"] for r in results if not r["ok"]]
     if failed:
@@ -2343,7 +2721,8 @@ def main():
     expected = {"sample": set(counters) - {"bilinear_bwd"} - switched,
                 "train": set(counters) - switched, "cli": set(counters) - {"bilinear_bwd"},
                 "samplers": set(counters) - {"bilinear_bwd"},
-                "train_cli": set(counters) - switched, "parallel": set(counters)}
+                "train_cli": set(counters) - switched, "parallel": set(counters),
+                "evaluate": {"layer_norm"}}
     for path, (launches, _) in paths.items():
         missing = sorted(k for k in expected[path] if launches[k] == 0)
         if missing:

@@ -21,20 +21,12 @@ from typing import Callable
 
 import torch
 
-from ..models.nerf import _resize_weights
+from ..ops.image_resize import resize_images
 from .sigma_sampling import sample_sigmas_cubic, sample_sigmas_discrete
 
 
 def _append_dims(x, ndim):
     return x.reshape(tuple(x.shape) + (1,) * (ndim - x.dim()))
-
-
-def resize_bilinear_aa(x, size: int):
-    """NHWC antialiased bilinear resize to (size, size), the weights of
-    jax.image.resize(..., "linear", antialias=True)."""
-    wh = _resize_weights(x.shape[1], size, x.device)
-    ww = _resize_weights(x.shape[2], size, x.device)
-    return torch.einsum("bhwc,hH,wW->bHWc", x, wh, ww)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +88,7 @@ def compute_loss_terms(model_output, fg_mask_list, alphas_list, rgb_list, target
         fg_terms, bg_terms = [], []
         for fg_mask, alphas in zip(fg_mask_list, alphas_list):
             size = math.isqrt(fg_mask.shape[1])  # fg_mask (B, hw); alphas (B, hw, S, 1)
-            op = resize_bilinear_aa(opacity.float(), size).reshape(-1, size * size).detach()
+            op = resize_images(opacity, size, "linear").reshape(-1, size * size).detach()
             fg = fg_mask.float().reshape(-1, size * size).clamp(0.0, 1.0)
             fg_terms.append(((fg - op) ** 2).mean(1))
             op_b = op.reshape(-1, size * size, 1, 1)
@@ -110,8 +102,8 @@ def compute_loss_terms(model_output, fg_mask_list, alphas_list, rgb_list, target
         rgb_terms = []
         for rgb in rgb_list:  # (B, hw, 3), compared in [0, 1]
             size = math.isqrt(rgb.shape[1])
-            mask_s = resize_bilinear_aa(m, size).detach()
-            tgt = resize_bilinear_aa(target_rgb.float() * 0.5 + 0.5, size).detach()
+            mask_s = resize_images(m, size, "linear").detach()
+            tgt = resize_images(target_rgb.float() * 0.5 + 0.5, size, "linear").detach()
             err = (tgt - rgb.float().reshape(-1, size, size, 3)) ** 2
             rgb_terms.append((err * mask_s).sum((1, 2, 3)) / (m.sum((1, 2, 3)) + 1e-6))
         out["rgb"] = torch.stack(rgb_terms, dim=1)

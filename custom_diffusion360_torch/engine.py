@@ -45,7 +45,7 @@ from .diffusion.sampling import (
 )
 from .geometry.cameras import Cameras
 from .models.conditioner import ConditionerConfig, apply_conditioner, init_conditioner_params
-from .models.nerf import CompactRefTokens
+from .models.nerf import CompactRefTokens, view_sharded
 from .models.nn import torch_dtype
 from .models.transformer import fuse_attention_params
 from .models.unet import UNetConfig, init_unet_params, precompute_context_kv, unet_apply
@@ -177,7 +177,7 @@ class Engine:
                               rgb_predict=self.cfg.unet.rgb_predict, kept=kept)
 
     def build_ref_features(self, references, choices, batch_size, num_copies,
-                           shared_cams=False, compact=True, rows=None):
+                           shared_cams=False, compact=True, rows=None, views=None):
         """Per-block reference tokens from delta-checkpoint buffers
         references {attn_id: {d: (Nref+1, hw, C)}} (last row = zero-image
         feature) and the chosen rows ``choices`` (n,), their num_copies CFG
@@ -186,14 +186,16 @@ class Engine:
         per-block projection (``shared_cams`` licenses the x3 render dedupe);
         else the dense (num_copies * B, n, hw, C) tensors that a per-row
         ``mask_ref`` needs. ``rows`` (lo, hi): only those expanded rows
-        (``Engine.sample(cfg_group=)``)."""
+        (``Engine.sample(cfg_group=)``); ``views`` (lo, hi): only those of
+        the chosen views (``Engine.sample(view_group=)``)."""
         idx = torch.as_tensor(choices, dtype=torch.long)
         out = {}
         for attn_id, per_d in references.items():
             out[attn_id] = {}
             for d, buf in per_d.items():
                 tok = CompactRefTokens(buf[-1], buf[:-1][idx.to(buf.device)], batch_size,
-                                       num_copies, shared_cams=shared_cams, rows=rows)
+                                       num_copies, shared_cams=shared_cams, rows=rows,
+                                       views=views)
                 if not compact:
                     tok = tok.expand_rows(tok.zero[None].expand(tok.chosen.shape),
                                           tok.chosen).contiguous()
@@ -206,7 +208,7 @@ class Engine:
                num_steps: Optional[int] = None, cache_nerf: bool = True,
                sampler: Optional[str] = None, draws=None,
                callback: Optional[Callable[[int], None]] = None,
-               shared_target_cams: bool = False, cfg_group=None):
+               shared_target_cams: bool = False, cfg_group=None, view_group=None):
         """Pose-conditioned sampling -> latents (B, h, w, 4) f32.
 
         noise: (B, h, w, 4) standard normal draws (the initial latent before
@@ -247,6 +249,17 @@ class Engine:
         the guider combine gives every rank all of them, so every rank
         steps the same latent. Both dedupes are off under it, as in JAX
         (they move rows between copies). Every rank passes the same inputs.
+
+        view_group: a process group whose size divides the chosen views
+        (the view-sharded render, the JAX package's ``ref_sharding``; delta
+        buffers only). Each rank renders from its own run of the views (its
+        reference tokens, cameras and ``mask_ref`` views), and the pose
+        blocks' reductions over the views all-reduce over the group
+        (``models.nerf.view_sharded``), so every rank ends the render with
+        the same rendered rows. Only the render does: the cached steps make
+        no view collective. It composes with ``cfg_group`` on a (cfg, view)
+        grid (``parallel.new_groups_2d``): a view group then holds ranks of
+        the same CFG rows. The x3 render dedupe is off under it.
         """
         cfg = self.cfg
         n_steps = num_steps or cfg.num_sample_steps
@@ -279,6 +292,21 @@ class Engine:
             input_ref = None if input_ref is None else input_ref[lo:hi]
             sigmas_ref = None if sigmas_ref is None else sigmas_ref[lo:hi]
             mask_ref = None if mask_ref is None else mask_ref[lo:hi]
+        views = None
+        if view_group is not None:
+            from .parallel.mesh import rank, world_size
+
+            if references is None:
+                raise ValueError("view_group shards the render of delta-buffer references; "
+                                 "live reference latents (input_ref) are not split")
+            n, k = len(choices), world_size(view_group)
+            if n % k:
+                raise ValueError(f"{n} chosen views do not split over a view group of {k} ranks")
+            views = (rank(view_group) * (n // k), (rank(view_group) + 1) * (n // k))
+            if cams is not None:  # the target camera, then this rank's views'
+                cams = Cameras(*(torch.cat([f[:, :1], f[:, 1 + views[0]:1 + views[1]]], dim=1)
+                                 for f in cams))
+            mask_ref = None if mask_ref is None else mask_ref[:, views[0]:views[1]]
 
         # inference-only q/k/v projection fusion, once per call
         params = dict(params, unet=fuse_attention_params(params["unet"]))
@@ -286,8 +314,9 @@ class Engine:
         if references is not None:
             ref_features = self.build_ref_features(
                 references, choices, b, guider.num_copies,
-                shared_cams=shared_target_cams and cfg_group is None,
-                compact=mask_ref is None, rows=None if cfg_group is None else (lo, hi))
+                shared_cams=shared_target_cams and cfg_group is None and view_group is None,
+                compact=mask_ref is None, rows=None if cfg_group is None else (lo, hi),
+                views=views)
 
         def local_rows(xb, sb, cb):
             """This rank's guider rows: the target rows lo..hi-1 and, with
@@ -347,7 +376,8 @@ class Engine:
 
         if cache_nerf and (ref_features or input_ref is not None):
             s0 = torch.full((b,), float(sigmas[0]), dtype=torch.float32, device=self.device)
-            denoised, rendered = make_denoise(None, True)(x, s0)
+            with view_sharded(view_group):
+                denoised, rendered = make_denoise(None, True)(x, s0)
             denoise_rest = make_denoise(rendered or None, False)
             if name == "euler_edm":
                 # Euler's step 0 is the render pass's own evaluation
@@ -362,8 +392,9 @@ class Engine:
             del denoised
             return sampler_fn(denoise_rest, x, sigmas, cfg.sampler, noise=noise_rows(n_steps),
                               scale_init=False, callback=callback)
-        return sampler_fn(make_denoise(None, False), x, sigmas, cfg.sampler,
-                          noise=noise_rows(n_steps), scale_init=False, callback=callback)
+        with view_sharded(view_group):  # every step renders
+            return sampler_fn(make_denoise(None, False), x, sigmas, cfg.sampler,
+                              noise=noise_rows(n_steps), scale_init=False, callback=callback)
 
     @torch.inference_mode()
     def samplemulti(self, params, conds, uc, guider, *, noise, cams_list, references=None,

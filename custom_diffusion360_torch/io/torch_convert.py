@@ -221,15 +221,12 @@ def _split_rows(table, cfg: ClipTextConfig):
     return table[: cfg.vocab_size], extra
 
 
-def convert_clip_l_state_dict(sd, cfg: ClipTextConfig,
-                              prefix: str = "conditioner.embedders.0.transformer."):
-    """HF CLIPTextModel keys. Embedding rows past cfg.vocab_size (appended
-    V* rows) become ``modifier_rows``."""
-    P = prefix + "text_model."
-    base, extra = _split_rows(sd[P + "embeddings.token_embedding.weight"], cfg)
+def hf_clip_blocks(sd, prefix: str, layers: int):
+    """The layer-stacked blocks of a HuggingFace CLIP encoder
+    (``<prefix><i>.self_attn.q_proj`` ...), text or vision."""
     blocks = []
-    for i in range(cfg.layers):
-        lp = f"{P}encoder.layers.{i}."
+    for i in range(layers):
+        lp = f"{prefix}{i}."
         blocks.append({
             "ln1": _norm(sd, lp + "layer_norm1"),
             "q": _lin(sd, lp + "self_attn.q_proj"),
@@ -240,10 +237,39 @@ def convert_clip_l_state_dict(sd, cfg: ClipTextConfig,
             "fc1": _lin(sd, lp + "mlp.fc1"),
             "fc2": _lin(sd, lp + "mlp.fc2"),
         })
+    return _stack(blocks)
+
+
+def open_clip_blocks(sd, prefix: str, width: int, layers: int):
+    """The layer-stacked blocks of an open_clip transformer
+    (``<prefix>transformer.resblocks.<i>``), the packed qkv ``in_proj``
+    split into q, k and v; text or vision."""
+    d = width
+    blocks = []
+    for i in range(layers):
+        lp = f"{prefix}transformer.resblocks.{i}."
+        in_w = sd[lp + "attn.in_proj_weight"]  # (3d, d)
+        in_b = sd[lp + "attn.in_proj_bias"]
+        blk = {"ln1": _norm(sd, lp + "ln_1")}
+        for j, name in enumerate("qkv"):
+            blk[name] = {"w": in_w[j * d:(j + 1) * d].t().contiguous(),
+                         "b": in_b[j * d:(j + 1) * d]}
+        blk.update({"o": _lin(sd, lp + "attn.out_proj"), "ln2": _norm(sd, lp + "ln_2"),
+                    "fc1": _lin(sd, lp + "mlp.c_fc"), "fc2": _lin(sd, lp + "mlp.c_proj")})
+        blocks.append(blk)
+    return _stack(blocks)
+
+
+def convert_clip_l_state_dict(sd, cfg: ClipTextConfig,
+                              prefix: str = "conditioner.embedders.0.transformer."):
+    """HF CLIPTextModel keys. Embedding rows past cfg.vocab_size (appended
+    V* rows) become ``modifier_rows``."""
+    P = prefix + "text_model."
+    base, extra = _split_rows(sd[P + "embeddings.token_embedding.weight"], cfg)
     return {
         "token_embedding": base,
         "positional_embedding": sd[P + "embeddings.position_embedding.weight"],
-        "blocks": _stack(blocks),
+        "blocks": hf_clip_blocks(sd, P + "encoder.layers.", cfg.layers),
         "ln_final": _norm(sd, P + "final_layer_norm"),
         "modifier_rows": extra,
     }
@@ -254,23 +280,10 @@ def convert_open_clip_state_dict(sd, cfg: ClipTextConfig,
     """open_clip text-tower keys (packed qkv ``in_proj``)."""
     P = prefix
     base, extra = _split_rows(sd[P + "token_embedding.weight"], cfg)
-    d = cfg.width
-    blocks = []
-    for i in range(cfg.layers):
-        lp = f"{P}transformer.resblocks.{i}."
-        in_w = sd[lp + "attn.in_proj_weight"]  # (3d, d)
-        in_b = sd[lp + "attn.in_proj_bias"]
-        blk = {"ln1": _norm(sd, lp + "ln_1")}
-        for j, name in enumerate("qkv"):
-            blk[name] = {"w": in_w[j * d:(j + 1) * d].t().contiguous(),
-                         "b": in_b[j * d:(j + 1) * d]}
-        blk.update({"o": _lin(sd, lp + "attn.out_proj"), "ln2": _norm(sd, lp + "ln_2"),
-                    "fc1": _lin(sd, lp + "mlp.c_fc"), "fc2": _lin(sd, lp + "mlp.c_proj")})
-        blocks.append(blk)
     return {
         "token_embedding": base,
         "positional_embedding": sd[P + "positional_embedding"],
-        "blocks": _stack(blocks),
+        "blocks": open_clip_blocks(sd, P, cfg.width, cfg.layers),
         "ln_final": _norm(sd, P + "ln_final"),
         "text_projection": {"w": sd[P + "text_projection"]},
         "modifier_rows": extra,

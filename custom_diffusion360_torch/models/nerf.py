@@ -7,7 +7,12 @@ Only the split/commuted encoding the TPU package runs in production is
 ported (``nerf_encoding_split``; see the JAX module for the algebra). The
 reference tokens are either delta-buffer ``CompactRefTokens`` (sampling) or
 dense (B, N, hw, C) tokens from the live reference stream (training), which
-take a per-row ``mask_ref``. Training adds the stochastic branches
+take a per-row ``mask_ref``. Inside ``view_sharded(group)`` the render is
+split over the reference views (``Engine.sample(view_group=)``, the JAX
+package's ``ref_sharding``): each rank holds its own views' tokens and
+cameras, and every reduction over the view axis (the view softmax, the
+attention-weighted pool and density, the ``average`` means) ends in an
+all-reduce over the group. Training adds the stochastic branches
 (stratified patch rays and lengths, the importance jitter and the
 stratified-vs-importance coin), each draw named in a ``draws.Draws``, and
 rematerializes each ray chunk on backward (torch.utils.checkpoint, as
@@ -15,10 +20,12 @@ rematerializes each ray chunk on backward (torch.utils.checkpoint, as
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -32,9 +39,15 @@ from ..geometry.rays import (
     rays_to_target_space,
     rays_to_view_space,
 )
+from ..ops.image_resize import resize_images
 from ..ops.onehot_sample import bilinear_sample
 from ..ops.sample_pdf import sample_pdf
 from .nn import Init, linear, linear_init, nearest_resize_tokens, silu, torch_dtype
+
+# the process group of the view-sharded render running inside
+# ``view_sharded``: set and restored by that context manager alone, so the
+# UNet's layers need no group argument (as parallel/tp.py's model group)
+_VIEW_GROUP = None
 
 # the sampled map channels [l1 plane rows | nviews row] are padded to this
 # multiple so each channel row is 16-byte aligned for the bilinear kernel's
@@ -117,23 +130,6 @@ def _uniform_lengths(cfg: NerfConfig, batch, num_rays, device):
     return centers.expand(shape), dists.expand(shape)
 
 
-def _resize_weights(src: int, dst: int, device):
-    """(src, dst) weights of ``jax.image.resize(..., "bilinear",
-    antialias=True)`` along one axis: a triangle kernel widened by src/dst
-    when downsampling, columns normalized, f32."""
-    inv_scale = src / dst
-    kernel_scale = max(inv_scale, 1.0)
-    sample_f = (torch.arange(dst, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
-    x = (sample_f[None, :] - torch.arange(src, dtype=torch.float32, device=device)[:, None]).abs()
-    w = (1.0 - x / kernel_scale).clamp_min(0.0)
-    total = w.sum(0, keepdim=True)
-    eps = 1000.0 * torch.finfo(torch.float32).eps
-    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, torch.ones_like(total)),
-                    torch.zeros_like(w))
-    inside = (sample_f >= -0.5) & (sample_f <= src - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w))
-
-
 def _importance_lengths(cfg: NerfConfig, prev_weights, num_rays, draws=None):
     """Inverse-CDF depths from the previous block's uniform render weights
     prev_weights (B, hw_prev, S, 1); resized (antialiased bilinear) when the
@@ -144,10 +140,7 @@ def _importance_lengths(cfg: NerfConfig, prev_weights, num_rays, draws=None):
     b, hw_prev = cdf.shape[:2]
     if hw_prev != num_rays:
         src, dst = math.isqrt(hw_prev), math.isqrt(num_rays)
-        wm = _resize_weights(src, dst, cdf.device)
-        img = cdf.reshape(b, src, src, s)
-        img = torch.einsum("bhws,hH,wW->bHWs", img, wm, wm)
-        cdf = img.reshape(b, num_rays, s)
+        cdf = resize_images(cdf.reshape(b, src, src, s), dst, "linear").reshape(b, num_rays, s)
 
     cdf_sum = cdf.sum(-1, keepdim=True)
     padding = F.relu(1e-5 - cdf_sum)
@@ -218,12 +211,16 @@ class CompactRefTokens:
     the same target camera rows (``Engine.sample(shared_target_cams=)``),
     which licenses the x3 render dedupe (transformer._reference_attn).
     ``rows`` (lo, hi): only the expanded rows lo..hi-1 (a rank's share of
-    the CFG rows under ``Engine.sample(cfg_group=)``)."""
+    the CFG rows under ``Engine.sample(cfg_group=)``). ``views`` (lo, hi):
+    only the chosen views lo..hi-1 (a rank's share of the views under
+    ``Engine.sample(view_group=)``); the zero plane is broadcast over the
+    local count, and ``shape`` reports it."""
 
     def __init__(self, zero, chosen, batch: int, copies: int, shared_cams: bool = False,
-                 rows=None):
+                 rows=None, views=None):
+        self.views = None if views is None else (int(views[0]), int(views[1]))
         self.zero = zero
-        self.chosen = chosen
+        self.chosen = chosen if views is None else chosen[self.views[0]:self.views[1]]
         self.batch = int(batch)
         self.copies = int(copies)
         self.shared_cams = bool(shared_cams)
@@ -243,6 +240,52 @@ class CompactRefTokens:
             s = chosen_rows[None].expand(((k - 1) * b,) + tuple(chosen_rows.shape))
             out = torch.cat([z, s], dim=0)
         return out if self.rows is None else out[self.rows[0]:self.rows[1]]
+
+
+@contextlib.contextmanager
+def view_sharded(group):
+    """Split the renders inside over the reference views: this rank holds
+    its own views' tokens and cameras (target first), and every reduction
+    over the view axis all-reduces over ``group``. Every rank of the group
+    must run the same renders, in the same order, with the same ray
+    chunks. The reductions are not differentiable: a render inside with
+    autograd on raises."""
+    global _VIEW_GROUP
+    prev, _VIEW_GROUP = _VIEW_GROUP, group
+    try:
+        yield
+    finally:
+        _VIEW_GROUP = prev
+
+
+def _view_reduce(x, op="sum"):
+    """``x`` reduced over the view group in place (sum or max); the
+    identity outside ``view_sharded``."""
+    if _VIEW_GROUP is None:
+        return x
+    if torch.is_grad_enabled():
+        raise RuntimeError("the view-sharded render's all-reduce is not differentiable; "
+                           "render under torch.no_grad or torch.inference_mode")
+    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                    group=_VIEW_GROUP)
+    return x
+
+
+def _view_softmax(logits):
+    """Softmax over the view axis 1 of f32 ``logits`` (B, N, hw, S), the
+    views split over the view group: the global max, then the global sum
+    of the exponentials."""
+    if _VIEW_GROUP is None:
+        return torch.softmax(logits, dim=1)
+    e = torch.exp(logits - _view_reduce(logits.amax(1, keepdim=True), "max"))
+    return e / _view_reduce(e.sum(1, keepdim=True))
+
+
+def _view_mean(x):
+    """Mean over the view axis 1 in f32, over every rank's views."""
+    if _VIEW_GROUP is None:
+        return x.float().mean(1)
+    return _view_reduce(x.float().sum(1)) / (x.shape[1] * dist.get_world_size(_VIEW_GROUP))
 
 
 def apply_ref_mask(xref, mask_ref):
@@ -384,7 +427,7 @@ def nerf_encoding_split(params, cams: Cameras, proj, geo_ray, logit_ray,
         tgt = torch.cat([pe[:, 0], pv[:, 0]], dim=1).to(cdt)  # (B, F, P)
         logit_pts = (tgt.transpose(1, 2) @ vw[c:v1, 0].to(cdt)).reshape(b, 1, hw, s)
         logits = (sampled[..., c].to(cdt) + logit_pts + logit_ray[..., :1]).float()
-        attn = torch.softmax(logits, dim=1)  # (B, N, hw, S) f32
+        attn = _view_softmax(logits)  # (B, N, hw, S) f32
     del sampled
 
     attn_out = None if attn is None else attn[..., None]
@@ -394,9 +437,9 @@ def nerf_encoding_split(params, cams: Cameras, proj, geo_ray, logit_ray,
         w2d = (l2["w"] @ wd)[:, -1]
         h_sig = h_act @ w2d.to(cdt)  # (B, N, hw, S)
         if attn is None:
-            sigma = h_sig.float().mean(1)
+            sigma = _view_mean(h_sig)
         else:
-            sigma = (h_sig * attn.to(cdt)).sum(1, dtype=torch.float32)
+            sigma = _view_reduce((h_sig * attn.to(cdt)).sum(1, dtype=torch.float32))
         if "b" in l2:
             sigma = sigma + (l2["b"] @ wd)[-1]
         return sigma[..., None], attn_out
@@ -404,9 +447,9 @@ def nerf_encoding_split(params, cams: Cameras, proj, geo_ray, logit_ray,
     h = linear(params["plane_coefs"]["l2"], h_act)
     del h_act
     if attn is None:
-        pooled = h.float().mean(1)
+        pooled = _view_mean(h)
     else:
-        pooled = (h * attn[..., None].to(cdt)).sum(1, dtype=torch.float32)
+        pooled = _view_reduce((h * attn[..., None].to(cdt)).sum(1, dtype=torch.float32))
     out = linear(params["decoder"], pooled)  # f32 (density feeds trunc_exp)
     return torch.cat([pooled, out], dim=-1), attn_out
 

@@ -283,12 +283,13 @@ def _reference_attn(p, cams, context_ref, context, prev_weights,
     per-point features are attended and rendered under the uc context (rows
     0 and 1), the chosen rows again under the c context (row 2), and the
     rendered outputs are concatenated. Only at inference, with compact
-    tokens, three copies and no ``mask_ref``.
+    tokens, three copies, no ``mask_ref`` and neither rows nor views
+    sharded (as the JAX package keeps it off under ``ref_sharding``).
     """
     dd_b = 0
     if (isinstance(context_ref, CompactRefTokens) and context_ref.copies == 3
             and context_ref.shared_cams and context_ref.rows is None
-            and mask_ref is None and draws is None
+            and context_ref.views is None and mask_ref is None and draws is None
             and os.environ.get("CD360_CFG3_DEDUPE", "1") != "0"):
         dd_b = context_ref.batch
         context_ref = CompactRefTokens(context_ref.zero, context_ref.chosen, dd_b, 2)

@@ -209,6 +209,33 @@ def all_gather_rows(x, group=None):
     return torch.cat(parts, dim=0)
 
 
+def new_groups_2d(n_cfg: int, n_view: int, group=None):
+    """The (cfg, view) grid of ``group``'s ranks (the world by default) ->
+    (cfg_group, view_group), this rank's column and row. Ranks lie as the
+    JAX package's ``Mesh(devices.reshape(n_cfg, n_view), ("cfg", "view"))``:
+    group rank = cfg index * n_view + view index. A view group holds the
+    ranks that share CFG rows (``Engine.sample(view_group=)``), a cfg group
+    the ranks that share views (``cfg_group=``). Every rank of the world
+    must call this (``dist.new_group``'s rule): each row's and column's
+    group is made on every rank, in the same order."""
+    n = world_size(group)
+    if n_cfg * n_view != n:
+        raise ValueError(f"a {n_cfg} x {n_view} grid needs {n_cfg * n_view} ranks, the group "
+                         f"has {n}")
+    ranks = [dist.get_global_rank(group, r) if group is not None else r for r in range(n)]
+    me = rank(group)
+    cfg_group = view_group = None
+    for v in range(n_view):  # columns: one view index, every cfg index
+        g = dist.new_group([ranks[c * n_view + v] for c in range(n_cfg)])
+        if me % n_view == v:
+            cfg_group = g
+    for c in range(n_cfg):  # rows: one cfg index, every view index
+        g = dist.new_group(ranks[c * n_view:(c + 1) * n_view])
+        if me // n_view == c:
+            view_group = g
+    return cfg_group, view_group
+
+
 def barrier(group=None):
     """Wait for every rank of ``group`` (NCCL: on this rank's card)."""
     if dist.get_backend(group) == "nccl":

@@ -10,6 +10,7 @@ from custom_diffusion360_tpu.geometry.cameras import Cameras as JCams
 from custom_diffusion360_tpu.models import nerf as jnerf
 from custom_diffusion360_torch.geometry.cameras import Cameras
 from custom_diffusion360_torch.models import nerf as tnerf
+from custom_diffusion360_torch.ops.image_resize import resize_weights
 from tests.test_cameras import random_cameras
 from tests.test_torch_common import max_err, random_params, t, to_torch
 from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
@@ -108,6 +109,6 @@ def test_resize_weights_match_jax_image_resize(src, dst):
     rng = np.random.default_rng(src * dst)
     img = rng.uniform(size=(2, src, src, 5)).astype(np.float32)
     want = jax.image.resize(jnp.asarray(img), (2, dst, dst, 5), method="bilinear", antialias=True)
-    w = tnerf._resize_weights(src, dst, "cpu")
+    w = resize_weights(src, dst, "linear")
     got = np.einsum("bhws,hH,wW->bHWs", img, w.numpy(), w.numpy())
     assert max_err(got, want) < 1e-5

@@ -1,4 +1,4 @@
-"""The rank programs of the two-rank tests (tests/test_torch_parallel*.py):
+"""The rank programs of the multi-rank tests (tests/test_torch_parallel*.py):
 
     python -m tests.torch_parallel_worker <case> <rank> <world> <port> <dir>
 
@@ -142,6 +142,25 @@ def cfg_sample(r, w, d):
     _save(d, r, z)
 
 
+def view_sample(r, w, d):
+    """Engine.sample on the (cfg, view) grid ``inputs["grid"]`` of the world
+    (parallel.new_groups_2d): the view group always, the cfg group when the
+    grid has more than one cfg row."""
+    from custom_diffusion360_torch.engine import Engine
+    from custom_diffusion360_torch.parallel import new_groups_2d
+
+    inp = _inputs(d)
+    n_cfg, n_view = inp["grid"]
+    cfg_group, view_group = new_groups_2d(n_cfg, n_view)
+    eng = Engine(inp["engine_cfg"], device="cpu")
+    z = eng.sample(inp["params"], inp["cond"], inp["uc"], inp["guider"], noise=inp["noise"],
+                   cams=inp["cams"], references=inp["references"], choices=inp["choices"],
+                   num_steps=inp["steps"], shared_target_cams=True,
+                   cfg_group=cfg_group if n_cfg > 1 else None, view_group=view_group,
+                   **inp.get("kwargs", {}))
+    _save(d, r, z)
+
+
 def sample_cli(r, w, d):
     """cli.sample.main --latency_shard with torchrun's environment set, each
     rank writing under its own output directory."""
@@ -194,8 +213,8 @@ def tp_loss(r, w, d):
                  "grads": [leaf.grad.clone() for leaf in tr.trainable(state)]})
 
 
-CASES = {f.__name__: f for f in (ddp_steps, train_cli, capture, cfg_sample, sample_cli,
-                                 tp_sample, tp_loss)}
+CASES = {f.__name__: f for f in (ddp_steps, train_cli, capture, cfg_sample, view_sample,
+                                 sample_cli, tp_sample, tp_loss)}
 
 
 def main(argv):
