@@ -93,6 +93,15 @@ Phases:
      through Inception and the vision tower, the Frechet distance's host
      time and the scores. Counters zeroed before and read after (path
      "evaluate");
+  5f. the autoencoder trainer (custom_diffusion360_torch.train.ae_engine,
+     AEEngine.train_step) at full width: the SDXL VAE trained with the KL
+     posterior, LPIPS on the full VGG16 and the PatchGAN (ndf 64, 3 layers)
+     read from seeded checkpoints at their torch layouts, hinge loss from
+     step 0, 4 bf16 images of 256^2, CD360_VAE_CONV=pallas: one warm-up
+     step, TRAIN_STEPS timed steps with the counters zeroed just before and
+     read just after (path "ae_train"), one traced step; the step median and
+     spread, every log value of the last step (finite), both sides' update
+     norms (nonzero), peak memory;
   6. small configurations run twice, on the card through the kernels (bf16)
      and on the CPU through the plain versions (f32): a 3-step sample +
      decode, whose latent and image must agree, a 3-step x3 CLI sample
@@ -103,14 +112,17 @@ Phases:
      agree, and a 3-step samplemulti; then the evaluation's towers in
      float32 (Inception with cuDNN's TF32 off; small CLIP vision and text
      towers): pool3 features, the image embedding, CLIP-T and CLIP-I within
-     1e-3 of max|ref|.
+     1e-3 of max|ref|; last, one AEEngine.train_step at the ae1 golden's
+     configuration with LPIPS on, whose logs and gradients must agree, and
+     nerf_encoding_apply (the bilinear kernel), whose output must agree.
 
 ``ms`` is a call's time with the host in it (events around many calls in
 a row), as the main paths pay it; ``device_ms`` is the kernel's own.
 
 Every kernel must launch on a main path (the bilinear backward on the
 training paths, conv3x3 and the bnhd route on the CLI paths, LayerNorm on
-the evaluation path), and every shape
+the evaluation path; GroupNorm, the d = 512 attention and conv3x3 on the
+autoencoder trainer's), and every shape
 a main path launched must have passed phase 2. Prints the card's name and
 power limit first, a JSON line per main path, per kernel source and path
 the sums over the timed run's launches of device time, library device time
@@ -972,11 +984,16 @@ def report_trace(torch, prof, step_ms, n, what):
     without the profiler."""
     from torch.autograd import DeviceType
 
-    groups, kernels = {}, []
+    groups, kernels, annotated = {}, [], 0.0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
         ms = getattr(evt, "self_device_time_total", 0) / 1e3 / n
+        if getattr(evt, "is_user_annotation", False):
+            # a record_function range on the device's timeline (the
+            # optimizers' "Optimizer.step#..."): its kernels count already
+            annotated += ms
+            continue
         name = evt.key.lower()
         group = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
                      "elementwise/other")
@@ -988,7 +1005,8 @@ def report_trace(torch, prof, step_ms, n, what):
         return
     log(f"[trace] {what}: device busy {busy:.2f} ms of {step_ms:.2f} ms wall "
         f"(idle share {1 - busy / step_ms:.3f}); "
-        f"{sum(c for _, c, _ in kernels)} kernel launches per step")
+        f"{sum(c for _, c, _ in kernels)} kernel launches per step; annotated ranges "
+        f"{annotated:.2f} ms not counted again")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"[trace]   {group:28s} {ms:8.2f} ms/step {ms / busy:6.1%}")
     for ms, count, name in sorted(kernels, reverse=True)[:12]:
@@ -2209,6 +2227,162 @@ def run_evaluate_path(torch, counters, dev="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 5f: the autoencoder trainer at full width
+# ---------------------------------------------------------------------------
+
+AE_RES, AE_BATCH = 256, 4
+
+
+def write_ae_weights(torch, d, ndf, n_layers, seed=0):
+    """Synthetic torch checkpoints at their real layouts, from a seed, in
+    ``d``: a torchvision vgg16 ``features`` state dict (He-scaled 3x3
+    kernels), taming's LPIPS heads ``lin{k}.model.1.weight`` (1, C, 1, 1),
+    and an NLayerDiscriminator ``main.{i}`` state dict with BatchNorm
+    (weights_init's N(0, 0.02) convs and N(1, 0.02) scales, running
+    statistics). Returns the three paths."""
+    from custom_diffusion360_torch.models.lpips import CHNS, VGG_SLICES
+
+    gen = torch.Generator().manual_seed(seed)
+    vgg, heads, disc = {}, {}, {}
+    cin = 3
+    for slice_ids, c in zip(VGG_SLICES, CHNS):
+        for idx in slice_ids:
+            vgg[f"features.{idx}.weight"] = (torch.randn((c, cin, 3, 3), generator=gen)
+                                             * (2.0 / (9 * cin)) ** 0.5)
+            vgg[f"features.{idx}.bias"] = torch.zeros(c)
+            cin = c
+    for k, c in enumerate(CHNS):
+        heads[f"lin{k}.model.1.weight"] = torch.rand((1, c, 1, 1), generator=gen) * 0.1
+    chans = [ndf * min(2 ** n, 8) for n in range(n_layers + 1)]
+    disc["main.0.weight"] = torch.randn((chans[0], 3, 4, 4), generator=gen) * 0.02
+    disc["main.0.bias"] = torch.zeros(chans[0])
+    for k in range(n_layers):
+        c = chans[k + 1]
+        disc[f"main.{2 + 3 * k}.weight"] = torch.randn((c, chans[k], 4, 4), generator=gen) * 0.02
+        disc[f"main.{3 + 3 * k}.weight"] = 1.0 + torch.randn((c,), generator=gen) * 0.02
+        disc[f"main.{3 + 3 * k}.bias"] = torch.zeros(c)
+        disc[f"main.{3 + 3 * k}.running_mean"] = torch.zeros(c)
+        disc[f"main.{3 + 3 * k}.running_var"] = torch.ones(c)
+        disc[f"main.{3 + 3 * k}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    disc[f"main.{2 + 3 * n_layers}.weight"] = (torch.randn((1, chans[-1], 4, 4), generator=gen)
+                                               * 0.02)
+    disc[f"main.{2 + 3 * n_layers}.bias"] = torch.zeros(1)
+    paths = tuple(os.path.join(d, name) for name in ("vgg.pth", "vgg16.pth", "disc.pth"))
+    for sd, path in zip((heads, vgg, disc), paths):
+        torch.save(sd, path)
+    return paths
+
+
+def run_ae_train_path(torch, counters):
+    """AEEngine.train_step at full width: the SDXL VAE (VAEConfig(): ch 128,
+    mult (1, 2, 4, 4), 2 res blocks, z 4) with the KL posterior, LPIPS on
+    the full VGG16 and the PatchGAN (ndf 64, 3 layers) from checkpoints at
+    their torch layouts (write_ae_weights, read by load_lpips_torch and
+    load_discriminator_torch), AEEngineConfig's defaults (hinge, disc_start
+    0: both GAN terms from the first step), AE_BATCH bf16 images of
+    AE_RES^2, CD360_VAE_CONV=pallas. One warm-up step, TRAIN_STEPS timed
+    steps with the counters zeroed just before and read just after, one
+    traced step. Fails unless every log value is finite and both sides
+    moved."""
+    import tempfile
+
+    from custom_diffusion360_torch.draws import Draws
+    from custom_diffusion360_torch.models.discriminator import load_discriminator_torch
+    from custom_diffusion360_torch.models.lpips import load_lpips_torch
+    from custom_diffusion360_torch.train.ae_engine import AEEngine, AEEngineConfig, init_ae_engine
+    from custom_diffusion360_torch.train.trainer import tree_leaves
+
+    cfg = AEEngineConfig()
+    saved = os.environ.get("CD360_VAE_CONV")
+    os.environ["CD360_VAE_CONV"] = "pallas"
+    try:
+        t0 = time.time()
+        with tempfile.TemporaryDirectory() as d:
+            lp, vgg, disc = write_ae_weights(torch, d, cfg.disc_ndf, cfg.disc_n_layers, seed=31)
+            t_write = time.time() - t0
+            params = init_ae_engine(cfg, seed=30, device="cuda")
+            params["lpips"] = load_lpips_torch(lp, vgg, device="cuda")
+            params["disc"] = load_discriminator_torch(
+                torch.load(disc, map_location="cpu", weights_only=True), cfg.disc_n_layers,
+                cfg.use_actnorm, device="cuda")
+        eng = AEEngine(cfg, device="cuda")
+        state = eng.init_state(params)
+        del params
+        sizes = {side: sum(p.numel() for p in tree_leaves(state.params[side]))
+                 for side in ("ae", "disc", "lpips")}
+        gen = torch.Generator(device="cuda").manual_seed(32)
+        x = (torch.rand((AE_BATCH, AE_RES, AE_RES, 3), generator=gen, device="cuda") * 2.0
+             - 1.0).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        log(f"[ae-train] parameters {json.dumps({k: v / 1e6 for k, v in sizes.items()})} M "
+            f"(f32); weights written {t_write:.1f} s, setup {time.time() - t0:.1f} s; "
+            f"{AE_BATCH} x {AE_RES}^2 bf16 images, CD360_VAE_CONV=pallas")
+
+        def step(i):
+            nonlocal state
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, logs = eng.train_step(
+                state, x, Draws(torch.Generator(device="cuda").manual_seed(200 + i)))
+            logs = {k: float(v) for k, v in logs.items()}  # synchronizes
+            torch.cuda.synchronize()
+            return time.perf_counter() - start, logs
+
+        t_warm = step(0)[0]
+        before = {side: [leaf.detach().clone() for leaf in tree_leaves(state.params[side])]
+                  for side in ("ae", "disc")}
+        for c in counters.values():
+            c.launches = 0
+            c.launches_by_shape.clear()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [step(1 + i) for i in range(TRAIN_STEPS)]
+        launches = {k: c.launches for k, c in counters.items()}
+        by_shape = {(k, shape): n for k, c in counters.items()
+                    for shape, n in c.launches_by_shape.items()}
+        peak = torch.cuda.max_memory_allocated()
+        norms = {side: float(torch.sqrt(sum(((leaf.detach() - old) ** 2).sum() for leaf, old in
+                                            zip(tree_leaves(state.params[side]), olds))))
+                 for side, olds in before.items()}
+        del before
+        times = sorted(r[0] * 1e3 for r in runs)
+        med = statistics.median(times)
+        last = runs[-1][1]
+        ok = all(math.isfinite(v) for _, logs in runs for v in logs.values()) and min(
+            norms.values()) > 0.0
+        log(f"[ae-train] warm-up step {t_warm * 1e3:.1f} ms; {TRAIN_STEPS} timed steps: median "
+            f"{med:.1f} ms (min {times[0]:.1f}, max {times[-1]:.1f}); peak memory allocated "
+            f"{peak / 2**30:.2f} GiB; update norms over the timed steps: AE "
+            f"{norms['ae']:.6e}, discriminator {norms['disc']:.6e}")
+        log("[ae-train] last step's logs: " + " ".join(f"{k} {v:.6g}"
+                                                       for k, v in sorted(last.items())))
+        log(f"[ae-train] launches in the timed steps {json.dumps(launches)}")
+        for (k, shape), n in sorted(by_shape.items(), key=str):
+            log(f"[ae-train] launches {k} {shape}: {n} ({n / TRAIN_STEPS:g} per step)")
+        print(json.dumps({"ae_train_path": {
+            "step_ms_median": med, "step_ms_min": times[0], "step_ms_max": times[-1],
+            "step_ms": [r[0] * 1e3 for r in runs], "warmup_ms": t_warm * 1e3,
+            "peak_gib": peak / 2**30, "update_norm": norms, "last_logs": last,
+            "launches": launches}}), flush=True)
+        if not ok:
+            raise RuntimeError(f"autoencoder step: logs {last} / update norms {norms} not "
+                               "finite and nonzero")
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            step(1 + TRAIN_STEPS)
+        report_trace(torch, prof, med, 1, "ae train step")
+        del state, eng, x
+        torch.cuda.empty_cache()
+        log(f"[ae-train] phase wall {time.time() - t0:.1f} s")
+    finally:
+        if saved is None:
+            os.environ.pop("CD360_VAE_CONV", None)
+        else:
+            os.environ["CD360_VAE_CONV"] = saved
+    return launches, by_shape
+
+
+# ---------------------------------------------------------------------------
 # phase 6: kernels vs plain versions through small samples and a train step
 # ---------------------------------------------------------------------------
 
@@ -2614,6 +2788,94 @@ def run_small_eval_check(torch):
         raise RuntimeError("small evaluation towers on the card disagree with the CPU")
 
 
+# the ae1 golden's configuration (tools/goldens_lib.py), LPIPS on
+SMALL_AE_VAE = dict(ch=32, ch_mult=(1,), num_res_blocks=1, z_channels=4)
+
+
+def run_small_ae_check(torch):
+    """One AEEngine.train_step at the ae1 golden's configuration (VAE ch 32,
+    mult (1,), 1 res block; PatchGAN ndf 8) with LPIPS on (full VGG16
+    widths), 2 images of 32^2, and nerf_encoding_apply at the tiny UNet's
+    pose-block shapes (dim 64, 8^2 token grid, 2 views, 4 samples, 2
+    frequencies): bf16 images through the kernels on the card (GroupNorm;
+    the bilinear kernel in f32 for the encoding) against f32 on the CPU
+    through the plain versions, from the same weights and draws. Every log
+    value within SMALL_TOL of max(1, |ref|); each side's gradients within
+    SMALL_TOL of its largest reference gradient, or within twice the error
+    of the plain versions' own bf16 run on the CPU where that is larger
+    (the PatchGAN's gradients in bf16 are 13 % off f32 on the CPU alone: it
+    has no kernel, and its BatchNorm takes statistics over 2 x 3 x 3
+    positions); the encoding within SMALL_TOL of max|ref|."""
+    from custom_diffusion360_torch.draws import Draws
+    from custom_diffusion360_torch.geometry.rays import get_patch_rays, ray_points_from_rays
+    from custom_diffusion360_torch.models.nerf import (
+        NerfConfig,
+        init_nerf_params,
+        nerf_encoding_apply,
+    )
+    from custom_diffusion360_torch.models.nn import Init
+    from custom_diffusion360_torch.models.vae import VAEConfig
+    from custom_diffusion360_torch.ops.norms import group_norm_fused
+    from custom_diffusion360_torch.ops.onehot_sample import bilinear_sample
+    from custom_diffusion360_torch.train.ae_engine import AEEngine, AEEngineConfig, init_ae_engine
+    from custom_diffusion360_torch.train.trainer import tree_leaves
+
+    cfg = AEEngineConfig(vae=VAEConfig(**SMALL_AE_VAE), disc_ndf=8, lr=1e-3)
+    params = perturb_zero_leaves(torch, init_ae_engine(cfg, seed=50, device="cpu"), seed=51)
+    gen = torch.Generator().manual_seed(52)
+    x = torch.rand((2, 32, 32, 3), generator=gen) * 2.0 - 1.0
+    eps = torch.randn((2, 32, 32, 4), generator=gen)
+    outs = {}
+    gn_before = group_norm_fused.launches
+    for dev, dtype in (("cpu", torch.float32), ("cpu", torch.bfloat16),
+                       ("cuda", torch.bfloat16)):
+        eng = AEEngine(cfg, device=dev)
+        state = eng.init_state(_map(params, lambda t: t.to(dev)))
+        state, logs = eng.train_step(state, x.to(dev, dtype), Draws(given={"vae_eps": eps}))
+        grads = {side: [opt.state[leaf]["exp_avg"].float().cpu() / 0.1
+                        for leaf in tree_leaves(state.params[side])]
+                 for side, opt in (("ae", state.opt_ae), ("disc", state.opt_disc))}
+        outs[dev, dtype] = ({k: float(v) for k, v in logs.items()}, grads)
+    ok = group_norm_fused.launches > gn_before
+    (l_ref, g_ref), (_, g_plain) = outs["cpu", torch.float32], outs["cpu", torch.bfloat16]
+    l_got, g_got = outs["cuda", torch.bfloat16]
+    for k in sorted(l_ref):
+        err, tol = abs(l_got[k] - l_ref[k]), SMALL_TOL * max(1.0, abs(l_ref[k]))
+        ok &= err <= tol
+        log(f"[small-ae] {k}: cuda-bf16 {l_got[k]:.6g} vs cpu-f32 {l_ref[k]:.6g} (err "
+            f"{err:.3e}, tol {tol:.3e}) {'OK' if err <= tol else 'FAIL'}")
+    for side in ("ae", "disc"):
+        scale = max(float(g.abs().max()) for g in g_ref[side])
+        err = max(float((a - b).abs().max()) for a, b in zip(g_got[side], g_ref[side]))
+        plain = max(float((a - b).abs().max()) for a, b in zip(g_plain[side], g_ref[side]))
+        tol = max(SMALL_TOL * scale, 2.0 * plain)
+        ok &= scale > 0 and err <= tol
+        log(f"[small-ae] {side} gradients ({len(g_ref[side])} leaves): max-abs err cuda-bf16 vs "
+            f"cpu-f32 {err:.3e}, cpu-bf16 vs cpu-f32 {plain:.3e} (tol {tol:.3e}: {SMALL_TOL} x "
+            f"max|ref| {scale:.3e} or twice the CPU's bf16 error) "
+            f"{'OK' if err <= tol else 'FAIL'}")
+
+    ncfg = NerfConfig(dim=64, num_samples=4, num_freqs=2, chunk_size=0)
+    nparams = perturb_zero_leaves(torch, init_nerf_params(Init(53, "cpu"), ncfg), seed=54)
+    cams = make_cameras(torch, 2, 1, "cpu")
+    rays, _ = get_patch_rays(cams, 8)
+    lengths = torch.linspace(0.5, 3.5, 4).expand(1, 64, 4)
+    pts = ray_points_from_rays(rays[:, 0], lengths)
+    xref = torch.randn((1, 2, 64, 64), generator=gen)
+    bl_before = bilinear_sample.launches
+    enc = {dev: nerf_encoding_apply(_map(nparams, lambda t: t.to(dev)), cams.to(dev),
+                                    xref.to(dev), pts.to(dev), rays.to(dev), None, ncfg)
+           for dev in ("cpu", "cuda")}
+    ok &= bilinear_sample.launches > bl_before
+    ok &= _compare(torch, "small-ae", "nerf_encoding_apply out", enc["cpu"][0], enc["cuda"][0])
+    ok &= _compare(torch, "small-ae", "nerf_encoding_apply attn", enc["cpu"][1], enc["cuda"][1])
+    log(f"[small-ae] kernel launches on the card: group_norm "
+        f"{group_norm_fused.launches - gn_before}, bilinear {bilinear_sample.launches - bl_before}")
+    if not ok:
+        raise RuntimeError("small autoencoder step or NeRF encoding on the card disagrees with "
+                           "the CPU")
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -2699,6 +2961,7 @@ def main():
     paths["train_cli"] = run_train_cli_path(torch, counters)
     paths["parallel"] = run_parallel_path(torch, counters)
     paths["evaluate"] = run_evaluate_path(torch, counters)
+    paths["ae_train"] = run_ae_train_path(torch, counters)
     check_launched(torch, results, {key for _, shapes in paths.values() for key in shapes})
     time_attention_backward(torch, grad_shapes)
     run_small_check(torch)
@@ -2709,6 +2972,7 @@ def main():
     run_small_log_images_check(torch)
     run_small_multi_check(torch)
     run_small_eval_check(torch)
+    run_small_ae_check(torch)
 
     failed = [r["name"] for r in results if not r["ok"]]
     if failed:
@@ -2722,7 +2986,7 @@ def main():
                 "train": set(counters) - switched, "cli": set(counters) - {"bilinear_bwd"},
                 "samplers": set(counters) - {"bilinear_bwd"},
                 "train_cli": set(counters) - switched, "parallel": set(counters),
-                "evaluate": {"layer_norm"}}
+                "evaluate": {"layer_norm"}, "ae_train": {"group_norm", "attention", "conv3x3"}}
     for path, (launches, _) in paths.items():
         missing = sorted(k for k in expected[path] if launches[k] == 0)
         if missing:

@@ -105,8 +105,10 @@ def _batched(fn, images, batch):
                            for i in range(0, len(images), batch)])
 
 
-def compute_fid(inception_params, gen, real, batch=8, device="cpu"):
-    """FID of two (N, H, W, 3) [0, 1] image sets."""
+def compute_fid(inception_params, gen, real, batch=8, device="cuda"):
+    """FID of two (N, H, W, 3) [0, 1] image sets, the features taken on
+    ``device`` (where ``inception_params`` live)."""
+    device = resolve_device(device)
 
     def feats(imgs):
         # pytorch_fid's protocol: [0, 1] inputs, mapped to the [-1, 1] range

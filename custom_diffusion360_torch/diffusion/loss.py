@@ -1,7 +1,10 @@
-"""Training loss (port of custom_diffusion360_tpu/diffusion/loss.py for
-``loss_type="l2"``), all terms in float32:
+"""Training loss (port of custom_diffusion360_tpu/diffusion/loss.py), all
+terms in float32:
 
-  l2   eps-weighted MSE of the denoised target, masked by the object mask;
+  l2   eps-weighted MSE of the denoised target, masked by the object mask
+       (``loss_type="l2"``); ``"l1"``: the weighted absolute error, a plain
+       mean with no mask; ``"lpips"``: LPIPS of the output against the
+       target (3-channel, pixel-space outputs), in the "l2" slot;
   fg   MSE(rendered fg_mask, antialiased-downsampled opacity), per pose block;
   bg   |alphas - opacity| * (1 - opacity) where opacity < 0.1;
   rgb  masked MSE(volume-rendered RGB, downsampled target image).
@@ -11,13 +14,12 @@ reference sigma from the discrete sampler on the 50-step grid; the
 reference latents are noised here once and again inside the denoiser (the
 reference implementation's double noising). Every draw is named in a
 ``draws.Draws``: sigma_idx, sigma_ref_idx, noise, noise_ref, noise_ref2.
-The l1 and LPIPS losses are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -37,17 +39,22 @@ class DiffusionLossConfig:
     loss_rgb_lambda: float = 5.0
     loss_fg_lambda: float = 10.0
     loss_bg_lambda: float = 10.0
+    # loss_type="lpips": torch checkpoints read once by the Engine (the
+    # taming "vgg.pth" heads and a torchvision vgg16 state dict)
+    lpips_ckpt: Optional[str] = None
+    vgg_ckpt: Optional[str] = None
 
 
 def diffusion_loss_img_ref(denoiser, network: Callable, cond: dict, x, x_rgb,
                            input_ref, mask, opacity, *, draws, sigmas_cubic,
                            sigmas_discrete, cfg: DiffusionLossConfig = DiffusionLossConfig(),
-                           **model_kwargs):
+                           lpips_params=None, **model_kwargs):
     """One training forward -> per-sample loss terms (compute_loss_terms).
     x: (B, H, W, C) clean target latent; x_rgb: (B, Hi, Wi, 3) image in
     [-1, 1]; input_ref: (B, N, H, W, C) clean reference latents or None;
     mask: (B, Hl, Wl, 1) latent-res object mask; opacity: (B, Hi', Wi', 1);
-    sigmas_cubic / sigmas_discrete: the ascending training grids."""
+    sigmas_cubic / sigmas_discrete: the ascending training grids;
+    lpips_params: the LPIPS weights of ``loss_type="lpips"``."""
     b = x.shape[0]
     sigmas = sample_sigmas_cubic(draws, "sigma_idx", sigmas_cubic, b)
     noise = draws.normal("noise", x.shape, x.device).to(x.dtype)
@@ -64,18 +71,33 @@ def diffusion_loss_img_ref(denoiser, network: Callable, cond: dict, x, x_rgb,
                                  sigmas_ref=sigmas_ref, noise_ref=noise_ref2, **model_kwargs)
     w = _append_dims(denoiser.w(sigmas), x.dim())
     return compute_loss_terms(model_output, aux["fg_mask_list"], aux["alphas_list"],
-                              aux["rgb_list"], x, x_rgb, w, mask, opacity, cfg=cfg)
+                              aux["rgb_list"], x, x_rgb, w, mask, opacity, cfg=cfg,
+                              lpips_params=lpips_params)
 
 
 def compute_loss_terms(model_output, fg_mask_list, alphas_list, rgb_list, target,
                        target_rgb, w, mask, opacity, *,
-                       cfg: DiffusionLossConfig = DiffusionLossConfig()):
+                       cfg: DiffusionLossConfig = DiffusionLossConfig(), lpips_params=None):
     """Per-sample terms in f32: 'l2' (B,), 'fg' / 'bg' / 'rgb' (B, n_blocks)
-    or None."""
-    if cfg.loss_type != "l2":
-        raise NotImplementedError(f"loss_type={cfg.loss_type!r} is not ported")
+    or None (always None under "l1" and "lpips")."""
     model_output, target = model_output.float(), target.float()
     b = target.shape[0]
+    if cfg.loss_type == "l1":
+        loss_l1 = (w.float() * (model_output - target).abs()).reshape(b, -1).mean(1)
+        return {"l2": loss_l1, "fg": None, "bg": None, "rgb": None}
+    if cfg.loss_type == "lpips":
+        if lpips_params is None:
+            raise ValueError("loss_type='lpips' needs lpips params: set DiffusionLossConfig."
+                             "lpips_ckpt / vgg_ckpt (read at Engine init) or pass "
+                             "lpips_params")
+        if model_output.shape[-1] != 3:
+            raise ValueError(f"LPIPS expects 3-channel inputs, got {tuple(model_output.shape)}")
+        from ..models.lpips import lpips_apply
+
+        return {"l2": lpips_apply(lpips_params, model_output, target), "fg": None, "bg": None,
+                "rgb": None}
+    if cfg.loss_type != "l2":
+        raise NotImplementedError(f"loss_type={cfg.loss_type!r}")
     loss = w.float() * (model_output - target) ** 2
     if mask is not None:
         m = mask.float()

@@ -6,6 +6,9 @@ takes it from ``given`` (a dict of tensors: a test hands both packages the
 same numbers) or draws it from a ``torch.Generator``. Names used:
 
   engine:  vae_eps, vae_eps_ref              standard normal, latent shapes
+           (vae_eps also the autoencoder trainer's posterior)
+  regularizers: gumbel                       standard Gumbel, the logits' shape
+           remap_idx                         ints in [0, len(used)), index shape
   loss:    sigma_idx, sigma_ref_idx          int grid indices, (B,)
            noise, noise_ref, noise_ref2      standard normal
   NeRF, under the prefix ``nerf/<attn_id>/<depth>/``:

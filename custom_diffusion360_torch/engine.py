@@ -80,6 +80,13 @@ class Engine:
                                                append_zero=False, flip=True)
         self.sigmas_discrete = legacy_ddpm_sigmas(cfg.loss.num_idx_ref, self.device,
                                                   append_zero=False, flip=True)
+        # the LPIPS weights of loss_type="lpips", read once
+        self.lpips_params = None
+        if cfg.loss.loss_type == "lpips" and cfg.loss.lpips_ckpt:
+            from .models.lpips import load_lpips_torch
+
+            self.lpips_params = load_lpips_torch(cfg.loss.lpips_ckpt, cfg.loss.vgg_ckpt,
+                                                 device=self.device)
 
     def init_params(self, seed: int = 0, dtype=None):
         """Seeded random {"unet", "vae", "conditioner"} parameters on the
@@ -165,7 +172,7 @@ class Engine:
             self.denoiser, network, cond, x, x_rgb, input_ref,
             None if mask is None else mask.to(self.device), batch["opacity"].to(self.device),
             draws=draws, sigmas_cubic=self.sigmas_cubic, sigmas_discrete=self.sigmas_discrete,
-            cfg=self.cfg.loss,
+            cfg=self.cfg.loss, lpips_params=self.lpips_params,
         )
         drop = batch["drop_im"].to(self.device)
         kept = None

@@ -96,3 +96,10 @@ def rays_to_target_space(cams: Cameras, rays):
     frame."""
     return transform_rays(rays, cams.R[:, :1, None], cams.T[:, :1, None])
 
+
+
+def points_to_view_space(cams: Cameras, points):
+    """cams batch (B, N); target ray points (B, hw, S, 3) -> every camera's
+    view frame, (B, N, hw, S, 3)."""
+    return (torch.einsum("bwsj,bnjk->bnwsk", points, cams.R)
+            + cams.T[:, :, None, None, :])

@@ -5,10 +5,14 @@ example ``jax.tree.map(np.asarray, params)``) and returns the port's nested
 dicts/lists of tensors under the same keys. Linear weights keep their
 (in, out) layout; conv kernels (4-D ``"w"`` leaves) go from JAX's HWIO to
 torch's OIHW; every other leaf (embeddings, ``modifier_rows``, positional
-embeddings, the stacked text blocks, ``text_projection``, norms) is copied
-as it is. So a whole JAX ``Engine.init_params`` tree ({"unet", "vae",
-"conditioner"}, the VAE encoder and ``quant_conv`` included) carries across.
-Nothing here imports JAX.
+embeddings, the stacked text blocks, ``text_projection``, norms, scalars)
+is copied as it is, and a None leaf stays None. So a whole JAX
+``Engine.init_params`` tree ({"unet", "vae", "conditioner"}, the VAE
+encoder and ``quant_conv`` included) carries across, and so does an
+``init_ae_engine`` tree ({"ae", "disc", "lpips"}: the scalar ``logvar``,
+the PatchGAN's and VGG16's kernels, ActNorm's ``loc`` / ``scale``, the
+LPIPS ``lins`` list, and ``lpips`` None without LPIPS). Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ def from_jax_params(tree, device="cuda", dtype=None):
     device = resolve_device(device)
 
     def walk(node, key=None):
+        if node is None:
+            return None
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):

@@ -3,9 +3,10 @@ ray-march the target camera, sample the reference-view feature maps at the
 projected ray points, predict density and features with small MLPs; the
 caller volume-renders.
 
-Only the split/commuted encoding the TPU package runs in production is
-ported (``nerf_encoding_split``; see the JAX module for the algebra). The
-reference tokens are either delta-buffer ``CompactRefTokens`` (sampling) or
+The renders run the split/commuted encoding (``nerf_encoding_split``; see
+the JAX module for the algebra); ``nerf_encoding_apply`` is the unsplit
+form it is held to, which samples the reference maps themselves (through
+the bilinear kernel on CUDA). The reference tokens are either delta-buffer ``CompactRefTokens`` (sampling) or
 dense (B, N, hw, C) tokens from the live reference stream (training), which
 take a per-row ``mask_ref``. Inside ``view_sharded(group)`` the render is
 split over the reference views (``Engine.sample(view_group=)``, the JAX
@@ -34,6 +35,7 @@ from ..geometry.rays import (
     get_patch_rays,
     pe_freqs,
     plucker_parameterization,
+    points_to_view_space,
     positional_encoding,
     ray_points_from_rays,
     rays_to_target_space,
@@ -297,6 +299,51 @@ def apply_ref_mask(xref, mask_ref):
     m = mask_ref.reshape(b, n, -1, 1).to(xref.dtype)
     m = nearest_resize_tokens(m, math.isqrt(m.shape[2]), math.isqrt(hw))
     return xref * m
+
+
+def nerf_encoding_apply(params, cams: Cameras, xref, ray_points, rays, mask_ref,
+                        cfg: NerfConfig):
+    """Per-point features and density logits, the unsplit form. cams (B, N+1)
+    with camera 0 the target; xref (B, N, hw_full, C) reference features on
+    a res^2 token grid; ray_points (B, hw, S, 3) target ray points in world
+    space (hw may be a chunk of the grid); rays (B, N+1, hw, 6); mask_ref
+    (B, N, Hm, Wm) or None. Returns (out (B, hw, S, C + 1 [+3]) f32, attn
+    (B, N, hw, S, 1) or None under ``average``)."""
+    xref = apply_ref_mask(xref.float(), mask_ref)
+    b, n, hw_full, c = xref.shape
+    hw, s = ray_points.shape[1], ray_points.shape[-2]
+    res = math.isqrt(hw_full)
+    nf = cfg.num_freqs
+
+    # project the target ray points into every reference camera; the
+    # reference flips the sign, clips and detaches (nerfsd_pytorch3d.py:89-95)
+    ndc = transform_points_ndc(cams, ray_points.reshape(b, 1, hw * s, 3))
+    grid = torch.nan_to_num(-ndc[:, 1:, :, :2].detach()).clamp(-1.2, 1.2)
+    plane = bilinear_sample(xref.reshape(b * n, res, res, c).contiguous(),
+                            grid.reshape(b * n, hw * s, 2)).reshape(b, n, hw, s, c)
+
+    pts_view = points_to_view_space(cams, ray_points)  # (B, N+1, hw, S, 3)
+    pe_pts_view = positional_encoding(pts_view, nf)
+    rays_view = rays_to_view_space(cams, rays[:, 0])[:, 1:]  # (B, N, hw, 6)
+    cam_inview = rays_view[:, :, :, None, :].expand(b, n, hw, s, 6)
+    pe_cam_inview = positional_encoding(plucker_parameterization(cam_inview), nf // 2)
+    mlp_in = torch.cat([plane, pe_pts_view[:, 1:], pts_view[:, 1:], pe_cam_inview,
+                        cam_inview[..., 3:]], dim=-1)
+    h = linear(params["plane_coefs"]["l2"], silu(linear(params["plane_coefs"]["l1"], mlp_in)))
+
+    if cfg.average:
+        pooled, attn = h.mean(1), None
+    else:
+        # per-view softmax pooling (nerfsd_pytorch3d.py:138-155)
+        cam_target = rays_to_target_space(cams, rays[:, 1:])[..., :3]
+        cam_target = cam_target[:, :, :, None, :].expand(b, n, hw, s, 3)
+        attn_in = torch.cat([
+            plane, pe_pts_view[:, :1].expand(b, n, hw, s, pe_pts_view.shape[-1]),
+            pts_view[:, :1].expand(b, n, hw, s, 3), cam_target,
+            positional_encoding(cam_target, nf)], dim=-1)
+        attn = torch.softmax(linear(params["nviews"], attn_in), dim=1)
+        pooled = (h * attn).sum(1)
+    return torch.cat([pooled, linear(params["decoder"], pooled)], dim=-1), attn
 
 
 def _l1_row_splits(cfg: NerfConfig):

@@ -384,3 +384,9 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
     aux = dict(fg_mask_list=fg_mask_list, alphas_list=alphas_list,
                rgb_list=rgb_list, rendered=rendered, ref_tokens=ref_tokens)
     return out.to(x.dtype), aux
+
+
+def no_time_unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, **kwargs):
+    """``unet_apply`` with the timestep conditioning zeroed (the reference's
+    NoTimeUNetModel)."""
+    return unet_apply(params, cfg, x, torch.zeros_like(timesteps), context, y, **kwargs)

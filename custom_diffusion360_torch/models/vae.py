@@ -1,8 +1,13 @@
 """SDXL VAE (port of custom_diffusion360_tpu/models/vae.py): the decoder
-for sampling, and the encoder, diagonal-Gaussian sample and
-``encode_first_stage`` for training, where the VAE is frozen and runs
-under ``torch.no_grad``. NHWC; single-head attention at the bottleneck,
-which goes to the attention kernel on CUDA (d = 512 at full width).
+for sampling; the encoder, diagonal-Gaussian sample and
+``encode_first_stage`` for the diffusion training step, where the VAE is
+frozen and encodes under ``torch.no_grad``; and ``autoencoding_engine_encode``
+with a pluggable latent regularizer and the identity first stage for the
+autoencoder trainer (train/ae_engine.py), which trains the VAE itself.
+``vae_encode`` and ``vae_decode`` compute in the input's dtype and cast each
+parameter to it differentiably, so float32 parameters that require grad get
+their gradient. NHWC; single-head attention at the bottleneck, which goes
+to the attention kernel on CUDA (d = 512 at full width).
 
 The res blocks' 3x3 convs and the decoder's upsample convs go through
 ``_conv3``: with ``CD360_VAE_CONV=pallas`` (read at each call) a shape that
@@ -220,3 +225,28 @@ def decode_first_stage(params, z, cfg: VAEConfig = VAEConfig()):
     if z.shape[0] == 1 or z.shape[1] < _PER_ROW_DECODE_MIN_LATENT:
         return vae_decode(params, z, cfg)
     return torch.cat([vae_decode(params, z[i:i + 1], cfg) for i in range(z.shape[0])])
+
+
+def autoencoding_engine_encode(params, x, regularizer=None, draws=None,
+                               cfg: VAEConfig = VAEConfig(), return_reg_log=False):
+    """Encode, then regularize the moments: ``regularizer`` is a callable
+    ``moments -> (z, log_dict)`` (identity, a quantizer of
+    models/regularizers.py); by default the KL posterior, sampled with the
+    draw "vae_eps" when ``draws`` is given, else its mean."""
+    from .regularizers import diagonal_gaussian_regularizer
+
+    moments = vae_encode(params, x, cfg)
+    if regularizer is None:
+        z, reg_log = diagonal_gaussian_regularizer(moments, draws, sample=draws is not None)
+    else:
+        z, reg_log = regularizer(moments)
+    return (z, reg_log) if return_reg_log else z
+
+
+def identity_first_stage_encode(params, x, *_, **__):
+    """A no-op first stage for pixel-space diffusion; ``params`` is unused."""
+    return x
+
+
+def identity_first_stage_decode(params, z, *_, **__):
+    return z

@@ -2,14 +2,16 @@
 attention.py).
 
 Inputs are (batch, seq, heads, head_dim), the layout the models keep.
-A CUDA attention with more than 128 keys goes to the attention kernel
-(``block_attention``, or with ``CD360_ATTN_BNHD=1``, read at each call,
-``block_attention_bnhd`` on the (b, n, h, d) operands as they are);
-short-KV attention (77-token text cross-attention)
-takes the plain f32 path, as on the TPU (ops/attention.py:54-63 there), and
-on the CPU the kernel wrapper runs its own plain version. The TPU's split between a whole-KV kernel
-(m <= 4096) and the library flash kernel (longer KV) has no counterpart: the
-Hopper kernel streams KV at any length.
+An attention with more than 128 keys and a head dim that is a multiple of
+64 goes to the attention kernel (``block_attention``, or with
+``CD360_ATTN_BNHD=1``, read at each call, ``block_attention_bnhd`` on the
+(b, n, h, d) operands as they are); short-KV attention (77-token text
+cross-attention) and other head dims (the 32-channel bottleneck of a small
+autoencoder) take the plain f32 path, as on the TPU (ops/attention.py:54-90
+there), and on the CPU the kernel wrapper runs its own plain version. The
+TPU's split between a whole-KV kernel (m <= 4096) and the library flash
+kernel (longer KV) has no counterpart: the Hopper kernel streams KV at any
+length.
 """
 from __future__ import annotations
 
@@ -21,6 +23,11 @@ import torch
 from .block_attention import block_attention, block_attention_bnhd, block_attention_qkv_fused
 
 KERNEL_MIN_KV = 128  # m above this goes to the kernel wrapper
+KERNEL_HEAD_MULTIPLE = 64  # ... when d is a multiple of this (the JAX gate)
+
+
+def _to_kernel(d: int, m: int) -> bool:
+    return m > KERNEL_MIN_KV and d % KERNEL_HEAD_MULTIPLE == 0
 
 
 def _plain_attention(q, k, v, scale: float):
@@ -36,16 +43,17 @@ def _plain_attention(q, k, v, scale: float):
 def dot_product_attention(q, k, v, scale: Optional[float] = None):
     """Softmax attention. q: (b, n, h, d); k, v: (b, m, h, d) -> (b, n, h, d).
 
-    ``scale`` defaults to d**-0.5. More than KERNEL_MIN_KV keys: the kernel
-    wrapper (the (b, n, h, d) one under ``CD360_ATTN_BNHD=1``); fewer: the
-    plain f32 path.
+    ``scale`` defaults to d**-0.5. More than KERNEL_MIN_KV keys and d a
+    multiple of KERNEL_HEAD_MULTIPLE: the kernel wrapper (the (b, n, h, d)
+    one under ``CD360_ATTN_BNHD=1``); else the plain f32 path.
     """
     d = q.shape[-1]
     if scale is None:
         scale = d**-0.5
-    if k.shape[1] > KERNEL_MIN_KV and os.environ.get("CD360_ATTN_BNHD", "") == "1":
+    kernel = _to_kernel(d, k.shape[1])
+    if kernel and os.environ.get("CD360_ATTN_BNHD", "") == "1":
         return block_attention_bnhd(q, k, v, scale)
-    if k.shape[1] > KERNEL_MIN_KV:
+    if kernel:
         out = block_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale
         )
@@ -56,9 +64,10 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None):
 def dot_product_attention_qkv(qkv, n_heads: int, scale: Optional[float] = None):
     """Self-attention from the fused to_qkv projection output.
 
-    qkv: (b, n, 3*h*d), columns ordered [q | k | v] -> (b, n, h*d). Past
-    KERNEL_MIN_KV tokens the kernel reads a strided (b, 3, h, n, d) view of
-    ``qkv`` in place (no split, no transpose copies); else split and
+    qkv: (b, n, 3*h*d), columns ordered [q | k | v] -> (b, n, h*d). Where
+    the kernel takes it (past KERNEL_MIN_KV tokens, d a multiple of
+    KERNEL_HEAD_MULTIPLE) it reads a strided (b, 3, h, n, d) view of ``qkv``
+    in place (no split, no transpose copies); else split and
     :func:`dot_product_attention`.
     """
     b, n, inner3 = qkv.shape
@@ -66,7 +75,7 @@ def dot_product_attention_qkv(qkv, n_heads: int, scale: Optional[float] = None):
     d = inner // n_heads
     if scale is None:
         scale = d**-0.5
-    if n > KERNEL_MIN_KV:
+    if _to_kernel(d, n):
         q5 = qkv.view(b, n, 3, n_heads, d).permute(0, 2, 3, 1, 4)
         out = block_attention_qkv_fused(q5, scale)  # (b, h, n, d)
         return out.transpose(1, 2).reshape(b, n, inner)

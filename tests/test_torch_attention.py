@@ -364,6 +364,29 @@ def test_bnhd_gradients_match_jax(kv_len):
     _assert_grads([leaf.grad for leaf in leaves], want)
 
 
+@pytest.mark.parametrize("d,m,kernel", [(64, 160, True), (512, 160, True), (32, 160, False),
+                                         (96, 160, False), (64, 128, False)])
+def test_dispatch_takes_the_kernel_only_where_jax_takes_pallas(monkeypatch, d, m, kernel):
+    """More than KERNEL_MIN_KV keys and d % 64 == 0 (JAX ops/attention.py
+    _block_ok): the kernel wrapper; else (a 32-channel autoencoder
+    bottleneck, short KV) the plain path, which equals it."""
+    rng = np.random.default_rng(11)
+    q, k, v = (t(rng.normal(size=(1, s, 1, d)).astype(np.float32)) for s in (150, m, m))
+    calls = []
+    orig = tba.block_attention
+    monkeypatch.setattr(tat, "block_attention", lambda *a: calls.append(1) or orig(*a))
+    got = tat.dot_product_attention(q, k, v)
+    assert bool(calls) == kernel
+    want = jat.dot_product_attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    assert max_err(got, want) < TOL
+    calls.clear()
+    qkv = t(rng.normal(size=(1, m, 3 * d)).astype(np.float32))
+    monkeypatch.setattr(tat, "block_attention_qkv_fused",
+                        lambda *a: calls.append(1) or tba.block_attention_qkv_fused(*a))
+    tat.dot_product_attention_qkv(qkv, 1)
+    assert bool(calls) == kernel
+
+
 def test_bnhd_switch_routes_long_kv_at_call_time(monkeypatch):
     """CD360_ATTN_BNHD=1, read at each call, sends > KERNEL_MIN_KV keys to
     block_attention_bnhd (same result); short KV stays plain."""

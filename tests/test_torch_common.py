@@ -115,19 +115,28 @@ def test_port_sources_name_no_jax():
                 )
 
 
-@pytest.mark.parametrize("entry", ["engine", "unet", "vae", "from_jax"])
+@pytest.mark.parametrize("entry", ["engine", "unet", "vae", "from_jax", "ae_engine",
+                                   "init_ae_engine", "compute_fid", "load_discriminator"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
+    from custom_diffusion360_torch.cli.evaluate import compute_fid
     from custom_diffusion360_torch.engine import Engine
+    from custom_diffusion360_torch.models.discriminator import load_discriminator_torch
     from custom_diffusion360_torch.models.unet import UNetConfig, init_unet_params
     from custom_diffusion360_torch.models.vae import VAEConfig, init_vae_params
+    from custom_diffusion360_torch.train.ae_engine import AEEngine, init_ae_engine
 
+    images = np.zeros((1, 8, 8, 3), np.float32)
     calls = {
         "engine": lambda: Engine(),
         "unet": lambda: init_unet_params(UNetConfig(**TINY_UNET)),
         "vae": lambda: init_vae_params(VAEConfig(**TINY_VAE)),
         "from_jax": lambda: from_jax_params({"w": np.zeros((2, 2), np.float32)}),
+        "ae_engine": lambda: AEEngine(),
+        "init_ae_engine": lambda: init_ae_engine(),
+        "compute_fid": lambda: compute_fid({}, images, images),
+        "load_discriminator": lambda: load_discriminator_torch({}),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

@@ -554,3 +554,40 @@ def test_collate_puts_the_batch_on_the_card(gen):
                 assert a.is_cuda and torch.equal(a.cpu(), b)
         else:
             assert on_card[k].is_cuda and torch.equal(on_card[k].cpu(), v), k
+
+
+# ---------------------------------------------------------------------------
+# the autoencoder trainer on the card
+# ---------------------------------------------------------------------------
+
+
+def test_ae_train_step_in_bf16_launches_the_kernels(gen, monkeypatch):
+    """One AEEngine.train_step on bf16 64^2 images with LPIPS on, the VAE at
+    ch 128, mult (1, 4) under CD360_VAE_CONV=pallas: every log value is
+    finite, both sides move, and the step launched the GroupNorm kernel,
+    the d = 512 attention kernel (the 32^2 bottleneck) and the conv3x3
+    kernel."""
+    from custom_diffusion360_torch.draws import Draws
+    from custom_diffusion360_torch.models.vae import VAEConfig
+    from custom_diffusion360_torch.train.ae_engine import AEEngine, AEEngineConfig, init_ae_engine
+    from custom_diffusion360_torch.train.trainer import tree_leaves
+
+    monkeypatch.setenv("CD360_VAE_CONV", "pallas")
+    cfg = AEEngineConfig(vae=VAEConfig(ch=128, ch_mult=(1, 4), num_res_blocks=1), disc_ndf=8,
+                         lr=1e-3)
+    eng = AEEngine(cfg)
+    state = eng.init_state(init_ae_engine(cfg, seed=0))
+    before = {side: [leaf.detach().clone() for leaf in tree_leaves(state.params[side])]
+              for side in ("ae", "disc")}
+    counters = (group_norm_fused, attention_fwd, conv3x3_fwd)
+    launches = [c.launches for c in counters]
+    x = (torch.rand((2, 64, 64, 3), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+    state, logs = eng.train_step(state, x, Draws(torch.Generator(device="cuda").manual_seed(1)))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(v)) for v in logs.values()), logs
+    for side, old in before.items():
+        moved = sum(float((leaf.detach() - o).abs().sum())
+                    for leaf, o in zip(tree_leaves(state.params[side]), old))
+        assert moved > 0, side
+    assert all(c.launches > n for c, n in zip(counters, launches))
+    assert any(shape[4] == 512 for shape in attention_fwd.launches_by_shape)

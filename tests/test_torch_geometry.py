@@ -59,6 +59,16 @@ def test_patch_rays_and_frames(res):
                    jrays.plucker_parameterization(want)) < 1e-4
 
 
+def test_points_to_view_space():
+    jc, tc = _cams(6, 4)
+    jc, tc = jc.reshape(2, 3), tc.reshape(2, 3)
+    pts = np.random.default_rng(4).normal(size=(2, 5, 4, 3)).astype(np.float32)
+    got = trays.points_to_view_space(tc, t(pts))
+    want = jrays.points_to_view_space(jc, jnp.asarray(pts))
+    assert got.shape == (2, 3, 5, 4, 3)
+    assert max_err(got, want) < TOL * max(1.0, float(np.abs(np.asarray(want)).max()))
+
+
 def test_positional_encoding_order():
     x = np.random.default_rng(3).normal(size=(5, 7, 3)).astype(np.float32)
     for nf in (2, 16):

@@ -17,8 +17,11 @@ Not held here: ``unet_plain_eps`` and ``unet_pose_eps`` are all zeros (the
 UNet's out conv is zero-initialized), so they match anything;
 ``sample3_latent_tp`` is held by tests/test_torch_parallel.py's
 tensor-parallel sample; ``capture_ref_tokens`` by
-tests/test_torch_train_cli.py; ``ae1_*`` belong to a module the port does
-not have yet.
+tests/test_torch_train_cli.py.
+
+``ae1_*``: one ``AEEngine.train_step`` from the JAX ``init_ae_engine``
+parameters at PRNGKey(22), images from PRNGKey(23) and the posterior draws
+of PRNGKey(24), within 1e-4 relative (each log value; the update norm).
 """
 import dataclasses
 import functools
@@ -264,3 +267,29 @@ def test_train1_loss_and_update_norm(golden):
                             for leaf, o in zip(tr.trainable(state), old)))
     assert _rel(update, golden["train1_update_norm"]) <= 1e-4
     assert len(list(tree_leaves(state.params))) > len(old)
+
+
+def test_ae1_losses_and_update_norm(golden):
+    from custom_diffusion360_tpu.models.vae import VAEConfig as JVAEConfig
+    from custom_diffusion360_tpu.train import ae_engine as jae
+    from custom_diffusion360_torch.train import ae_engine as tae
+
+    kw = dict(disc_ndf=8, use_lpips=False, lr=1e-3)
+    vae = dict(ch=32, ch_mult=(1,), num_res_blocks=1, z_channels=4)
+    jcfg = jae.AEEngineConfig(vae=JVAEConfig(**vae), **kw)
+    params = jax.tree.map(np.asarray, jae.init_ae_engine(jax.random.PRNGKey(22), jcfg))
+    x = jax.random.uniform(jax.random.PRNGKey(23), (2, 32, 32, 3), jnp.float32, -1.0, 1.0)
+    eps = jax.random.normal(jax.random.PRNGKey(24), (2, 32, 32, 4), jnp.float32)
+    eng = tae.AEEngine(tae.AEEngineConfig(vae=VAEConfig(**vae), **kw), device="cpu")
+    state = eng.init_state(to_torch(params))
+    old = [leaf.detach().clone() for side in ("ae", "disc")
+           for leaf in tree_leaves(state.params[side])]
+    state, logs = eng.train_step(state, t(np.asarray(x)),
+                                 Draws(given={"vae_eps": t(np.asarray(eps))}))
+    want = golden["ae1_losses"]
+    got = np.array([float(logs[k]) for k in sorted(logs)], np.float32)
+    assert got.shape == want.shape
+    assert (np.abs(got - want) <= 1e-4 * np.abs(want)).all(), (got, want)
+    new = [leaf.detach() for side in ("ae", "disc") for leaf in tree_leaves(state.params[side])]
+    update = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(new, old)))
+    assert _rel(update, golden["ae1_update_norm"]) <= 1e-4

@@ -86,6 +86,42 @@ def test_dense_tokens_and_chunking_invariance(setup):
         assert max_err(a[key], b[key]) < 1e-5, key
 
 
+@pytest.mark.parametrize("average", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_nerf_encoding_apply_matches_jax_and_the_split_form(average, masked):
+    """The unsplit encoding against JAX's (1e-4 of max|want|), and against
+    the port's split form on the same inputs (rtol 2e-4, atol 2e-5, the
+    tolerance of tests/test_nerf_split.py in the JAX package)."""
+    kw = dict(dim=DIM, num_samples=6, num_freqs=4, chunk_size=0, average=average)
+    jcfg, tcfg = jnerf.NerfConfig(**kw), tnerf.NerfConfig(**kw)
+    params = random_params(lambda k: jnerf.init_nerf_params(k, jcfg), seed=3)
+    jp, tp = jax.tree.map(jnp.asarray, params), to_torch(params)
+    jc = random_cameras(B * (1 + NREF), seed=8).reshape(B, 1 + NREF)
+    tc = Cameras(*(t(np.asarray(f)) for f in jc))
+    rng = np.random.default_rng(9)
+    xref = rng.normal(size=(B, NREF, 64, DIM)).astype(np.float32)
+    mask = (rng.uniform(size=(B, NREF, 16, 16)) > 0.3).astype(np.float32) if masked else None
+    march = jnerf.raymarch(jc, 8, jcfg, None, False)
+    pts, rays = np.asarray(march["ray_points"]), np.asarray(march["rays"])
+    out_j, attn_j = jnerf.nerf_encoding_apply(jp, jc, jnp.asarray(xref), march["ray_points"],
+                                              march["rays"], None if mask is None
+                                              else jnp.asarray(mask), jcfg)
+    tmask = None if mask is None else t(mask)
+    out_t, attn_t = tnerf.nerf_encoding_apply(tp, tc, t(xref), t(pts), t(rays), tmask, tcfg)
+    assert out_t.shape == out_j.shape == (B, 64, 6, DIM + 4)
+    assert max_err(out_t, out_j) < 1e-4 * max(1.0, float(np.abs(np.asarray(out_j)).max()))
+    assert (attn_t is None) == (attn_j is None) == average
+    if not average:
+        assert max_err(attn_t, attn_j) < 1e-5
+
+    proj = tnerf.project_ref_maps(tp, t(xref), tcfg, mask_ref=tmask)
+    geo_ray, logit_ray = tnerf.ray_shared_terms(tp, tc, t(rays), tcfg)
+    out_s, attn_s = tnerf.nerf_encoding_split(tp, tc, proj, geo_ray, logit_ray, t(pts), tcfg)
+    np.testing.assert_allclose(out_t.numpy(), out_s.numpy(), rtol=2e-4, atol=2e-5)
+    if not average:
+        np.testing.assert_allclose(attn_t.numpy(), attn_s.numpy(), rtol=2e-4, atol=2e-5)
+
+
 def test_project_ref_maps_pads_channels(setup):
     _, tp, _, _, tokens = setup
     buf = tokens[4]

@@ -108,6 +108,20 @@ def test_unet_plain_path_unfused(unet_setup):
     assert _rel(eps_t, eps_j, 2e-4)
 
 
+def test_no_time_unet_apply_matches_jax(unet_setup):
+    """The UNet with its timestep conditioning zeroed, plain path; it
+    differs from the timed forward."""
+    jcfg, tcfg, params, _, _, inp = unet_setup
+    args = [inp[k] for k in ("x", "t", "ctx", "y")]
+    eps_j, _ = junet.no_time_unet_apply(jax.tree.map(jnp.asarray, params), jcfg,
+                                        *(jnp.asarray(a) for a in args))
+    tp = to_torch(params)
+    eps_t, _ = tunet.no_time_unet_apply(tp, tcfg, *(t(a) for a in args))
+    assert _rel(eps_t, eps_j, 2e-4)
+    timed, _ = tunet.unet_apply(tp, tcfg, *(t(a) for a in args))
+    assert max_err(timed, eps_t) > 1e-3
+
+
 @pytest.mark.parametrize("per_row", [False, True])
 def test_vae_decode_matches_jax(per_row, monkeypatch):
     jcfg, tcfg = jvae.VAEConfig(**TINY_VAE), tvae.VAEConfig(**TINY_VAE)
