@@ -102,6 +102,22 @@ Phases:
      read just after (path "ae_train"), one traced step; the step median and
      spread, every log value of the last step (finite), both sides' update
      norms (nonzero), peak memory;
+  5g. the rest of the sgm model surface (custom_diffusion360_torch.models.
+     t5, embedders, general_conditioner, encoder_unet, extra_blocks) at
+     published widths, bf16, random weights from seeds: T5-v1.1 XXL on
+     2 x 77 tokens (beside the time to read its 9.5 GB of weights once),
+     clip_t5_encode (CLIP-L + T5-v1.1 XL), ByT5 through byt5_tokenize, the
+     general conditioner on the SDXL stack (target + 8 reference rows, held
+     to apply_conditioner within 1e-2 of max|ref|), open_clip_embedder2
+     (bigG, penultimate, pooled), open_clip_image_embedder (ViT-H/14, UCG
+     0.1, batch 8), guided-diffusion's 256^2 classifier (EncoderUNet,
+     attention pool, batch 8), the DDPM LSUN-256 model (batch 4; vanilla
+     and linear attention), the single-layer block at width 1280 over 1024
+     tokens (self and a 77 x 2048 context), the SDXL VAE through
+     low_scale_encode -> low_scale_decode (CD360_VAE_CONV=pallas) and
+     gaussian_encoder (batch 2, 512^2): each model's median of 5 calls after
+     a warm-up, peak memory and launches per call. Counters zeroed before
+     the first model and read after the last (path "aux");
   6. small configurations run twice, on the card through the kernels (bf16)
      and on the CPU through the plain versions (f32): a 3-step sample +
      decode, whose latent and image must agree, a 3-step x3 CLI sample
@@ -112,9 +128,12 @@ Phases:
      agree, and a 3-step samplemulti; then the evaluation's towers in
      float32 (Inception with cuDNN's TF32 off; small CLIP vision and text
      towers): pool3 features, the image embedding, CLIP-T and CLIP-I within
-     1e-3 of max|ref|; last, one AEEngine.train_step at the ae1 golden's
+     1e-3 of max|ref|; one AEEngine.train_step at the ae1 golden's
      configuration with LPIPS on, whose logs and gradients must agree, and
-     nerf_encoding_apply (the bilinear kernel), whose output must agree.
+     nerf_encoding_apply (the bilinear kernel), whose output must agree;
+     last, the five auxiliary modules at the CPU tests' tiny sizes (bf16 on
+     the card vs f32 on the CPU, within 5e-2 of max(1, max|ref|)), and the
+     T5 position bias on the card equal to the CPU's bit for bit.
 
 ``ms`` is a call's time with the host in it (events around many calls in
 a row), as the main paths pay it; ``device_ms`` is the kernel's own.
@@ -122,7 +141,8 @@ a row), as the main paths pay it; ``device_ms`` is the kernel's own.
 Every kernel must launch on a main path (the bilinear backward on the
 training paths, conv3x3 and the bnhd route on the CLI paths, LayerNorm on
 the evaluation path; GroupNorm, the d = 512 attention and conv3x3 on the
-autoencoder trainer's), and every shape
+autoencoder trainer's; GroupNorm, LayerNorm, the attention and conv3x3 on
+the auxiliary models'), and every shape
 a main path launched must have passed phase 2. Prints the card's name and
 power limit first, a JSON line per main path, per kernel source and path
 the sums over the timed run's launches of device time, library device time
@@ -1032,6 +1052,13 @@ TRAIN_RES, TRAIN_REFS, TRAIN_STEPS = 512, 4, 6
 BOS, EOT = 49406, 49407  # CLIP's start and end ids
 
 
+def clip_tokens(torch, rows, vocab, device, ids=(BOS, 320, None, EOT), length=77):
+    """(rows, length) int32 ids: ``ids`` (None: the V* id, = vocab) then 0."""
+    toks = torch.zeros((rows, length), dtype=torch.int32)
+    toks[:, :len(ids)] = torch.tensor([vocab if i is None else i for i in ids])
+    return toks.to(device)
+
+
 def make_train_batch(torch, cfg, b, n, res, device, seed=0, ids=(BOS, 320, None, EOT)):
     """A synthetic training batch as bench.py --train builds it (images
     N(0, 0.3^2), full masks, size tuples at ``res``), with a disc-shaped
@@ -1045,10 +1072,8 @@ def make_train_batch(torch, cfg, b, n, res, device, seed=0, ids=(BOS, 320, None,
         return torch.randn(shape, generator=gen, device=device) * 0.3
 
     def tokens(m):
-        toks = torch.zeros((m, cfg.conditioner.clip_l.context_length), dtype=torch.int32)
-        vocab = cfg.conditioner.clip_l.vocab_size
-        toks[:, :len(ids)] = torch.tensor([vocab if i is None else i for i in ids])
-        return toks.to(device)
+        clip_l = cfg.conditioner.clip_l
+        return clip_tokens(torch, m, clip_l.vocab_size, device, ids, clip_l.context_length)
 
     yy, xx = np.mgrid[:res, :res]
     disc = ((yy - res / 2) ** 2 + (xx - res / 2) ** 2 < (0.35 * res) ** 2).astype(np.float32)
@@ -2383,6 +2408,288 @@ def run_ae_train_path(torch, counters):
 
 
 # ---------------------------------------------------------------------------
+# phase 5g: the rest of the sgm model surface at published widths
+# ---------------------------------------------------------------------------
+
+AUX_CALLS = 5  # timed calls of each model after one warm-up
+AUX_COND_TOL = 1e-2  # general vs specialized conditioner on the card, of max|ref|
+# T5-v1.1 XXL (sgm FrozenT5Embedder's google/t5-v1_1-xxl) and XL
+# (FrozenCLIPT5Encoder's google/t5-v1_1-xl)
+T5_XXL = dict(vocab_size=32128, d_model=4096, d_kv=64, d_ff=10240, num_layers=24, num_heads=64)
+T5_XL = dict(vocab_size=32128, d_model=2048, d_kv=64, d_ff=5120, num_layers=24, num_heads=32)
+# guided-diffusion's 256^2 classifier (its resblock up/down and scale-shift
+# norm, which the JAX package lacks, are cut); attention at ds 8, 16, 32
+CLASSIFIER_256 = dict(image_size=256, in_channels=3, model_channels=128, out_channels=1000,
+                      num_res_blocks=2, attention_resolutions=(8, 16, 32),
+                      channel_mult=(1, 1, 2, 2, 4, 4), num_head_channels=64, pool="attention")
+# Ho et al. 2020, LSUN 256^2
+DDPM_LSUN_256 = dict(ch=128, out_ch=3, ch_mult=(1, 1, 2, 2, 4, 4), num_res_blocks=2,
+                     attn_resolutions=(16,), in_channels=3, resolution=256)
+
+
+def _n_params(tree):
+    return sum(leaf.numel() for leaf in _leaves(tree))
+
+
+def sdxl_embedder_specs(ccfg):
+    """The SDXL conditioner stack (models/conditioner.py) as general
+    conditioner specs: CLIP-L final, bigG penultimate and pooled, the three
+    size embeddings; each on the target and the reference keys."""
+    from custom_diffusion360_torch.models.clip import clip_text_apply
+    from custom_diffusion360_torch.models.conditioner import embed_size_tuple
+    from custom_diffusion360_torch.models.general_conditioner import EmbedderSpec
+
+    def open_clip(p, tokens):
+        out = clip_text_apply(p, tokens, ccfg.open_clip)
+        return out["penultimate"], out["pooled"]
+
+    return [EmbedderSpec("clip_l", lambda p, t: clip_text_apply(p, t, ccfg.clip_l)["final"],
+                         input_keys=("tokens_clip", "tokens_clip_ref")),
+            EmbedderSpec("open_clip", open_clip, input_keys=("tokens_open", "tokens_open_ref"))] + [
+        EmbedderSpec(key, lambda _, x: embed_size_tuple(x, ccfg.size_outdim),
+                     input_keys=(key, key + "_ref"))
+        for key in ("original_size", "crop_coords", "target_size")]
+
+
+def run_aux_path(torch, counters):
+    """Every auxiliary model of the sgm surface once at its published width,
+    bf16, random weights from seeds: T5-v1.1 XXL (2 x 77 tokens, beside the
+    time to read its weights once), clip_t5_encode (CLIP-L + T5-v1.1 XL),
+    ByT5 through byt5_tokenize, the general conditioner on the SDXL stack
+    (target + 8 reference rows, held to the specialized apply_conditioner
+    within AUX_COND_TOL of max|ref|), open_clip_embedder2 (bigG,
+    penultimate, pooled), open_clip_image_embedder (ViT-H/14, 224^2, UCG
+    0.1, batch 8), the guided-diffusion 256^2 classifier (batch 8), the
+    DDPM LSUN-256 model (batch 4, vanilla and linear attention), the
+    single-layer block at SDXL's 1280 width (1024 tokens; self-attention
+    and a 77 x 2048 context), and the SDXL VAE through low_scale_encode ->
+    low_scale_decode (CD360_VAE_CONV=pallas, the decode in bf16) and
+    gaussian_encoder (batch 2, 512^2). Each model: one warm-up call, then
+    the median of AUX_CALLS calls (host clock, synchronized), peak memory
+    and kernel launches per call; every output finite. Counters zeroed just
+    before the first model and read after the last (path "aux")."""
+    from custom_diffusion360_torch.draws import Draws
+    from custom_diffusion360_torch.models.clip import (
+        CLIP_L_CONFIG,
+        OPEN_CLIP_BIGG_CONFIG,
+        ClipVisionConfig,
+        init_clip_text_params,
+        init_clip_vision_params,
+    )
+    from custom_diffusion360_torch.models.conditioner import (
+        ConditionerConfig,
+        apply_conditioner,
+        init_conditioner_params,
+    )
+    from custom_diffusion360_torch.models.embedders import (
+        LowScaleConfig,
+        clip_t5_encode,
+        gaussian_encoder,
+        low_scale_decode,
+        low_scale_encode,
+        open_clip_embedder2,
+        open_clip_image_embedder,
+    )
+    from custom_diffusion360_torch.models.encoder_unet import (
+        EncoderUNetConfig,
+        encoder_unet_apply,
+        init_encoder_unet_params,
+    )
+    from custom_diffusion360_torch.models.extra_blocks import (
+        DDPMModelConfig,
+        ddpm_model_apply,
+        init_ddpm_model_params,
+        init_single_layer_block,
+        single_layer_block_apply,
+    )
+    from custom_diffusion360_torch.models.general_conditioner import general_conditioner_apply
+    from custom_diffusion360_torch.models.nn import Init
+    from custom_diffusion360_torch.models.t5 import (
+        BYT5_BASE,
+        T5Config,
+        byt5_tokenize,
+        init_t5_params,
+        t5_encode,
+    )
+    from custom_diffusion360_torch.models.vae import VAEConfig, init_vae_params
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    report = {}
+    t_phase = time.time()
+    for c in counters.values():
+        c.launches = 0
+        c.launches_by_shape.clear()
+
+    def run(name, fn, params):
+        """Warm-up, AUX_CALLS timed calls; logs and keeps the numbers."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = {k: c.launches for k, c in counters.items()}
+        with torch.inference_mode():
+            out = fn()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(AUX_CALLS):
+                start = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - start) * 1e3)
+        outs = (list(out.values()) if isinstance(out, dict)
+                else out if isinstance(out, (tuple, list)) else [out])
+        outs = [o for o in outs if isinstance(o, torch.Tensor)]
+        finite = all(bool(torch.isfinite(o.float()).all()) for o in outs)
+        per_call = {k: (c.launches - before[k]) / (AUX_CALLS + 1) for k, c in counters.items()
+                    if c.launches > before[k]}
+        rec = {"ms_median": statistics.median(times), "ms_min": min(times),
+               "ms_max": max(times), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "params_m": params / 1e6, "launches_per_call": per_call,
+               "shapes": [tuple(o.shape) for o in outs], "finite": finite}
+        report[name] = rec
+        log(f"[aux] {name}: {params / 1e6:.1f} M parameters; median {rec['ms_median']:.3f} ms "
+            f"(min {rec['ms_min']:.3f}, max {rec['ms_max']:.3f}) over {AUX_CALLS} calls; peak "
+            f"{rec['peak_gib']:.2f} GiB; launches per call {json.dumps(per_call)}; outputs "
+            f"{rec['shapes']} {'finite' if finite else 'NOT FINITE'}")
+        if not finite:
+            raise RuntimeError(f"[aux] {name}: output not finite")
+        return out
+
+    # T5-v1.1 XXL: the weights are read once a call; the bound is that read
+    cfg = T5Config(**T5_XXL)
+    params = init_t5_params(cfg, seed=71, device="cuda", dtype=bf16)
+    n = _n_params(params)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 77), generator=gen, device="cuda")
+    run("t5_xxl_encode", lambda: t5_encode(params, tokens, cfg), n)
+    report["t5_xxl_encode"]["weight_read_bound_ms"] = 2 * n / H100_BYTES_PER_S * 1e3
+    log(f"[aux] t5_xxl_encode: reading its {2 * n / 1e9:.2f} GB of bf16 weights once takes "
+        f">= {report['t5_xxl_encode']['weight_read_bound_ms']:.3f} ms at 3.35 TB/s")
+    del params
+    torch.cuda.empty_cache()
+
+    clip_l = init_clip_text_params(CLIP_L_CONFIG, seed=72, device="cuda", dtype=bf16)
+    t5_xl = init_t5_params(T5Config(**T5_XL), seed=73, device="cuda", dtype=bf16)
+    clip_ids = clip_tokens(torch, 2, CLIP_L_CONFIG.vocab_size, "cuda")
+    run("clip_t5_encode", lambda: clip_t5_encode(clip_l, t5_xl, clip_ids, tokens, CLIP_L_CONFIG,
+                                                 T5Config(**T5_XL)),
+        _n_params(clip_l) + _n_params(t5_xl))
+    del clip_l, t5_xl
+
+    byt5 = init_t5_params(BYT5_BASE, seed=74, device="cuda", dtype=bf16)
+    ids, _ = byt5_tokenize(["a photo of a <new1> car on a beach at dusk",
+                            "a <new1> car seen from behind, studio light"], 77)
+    ids = torch.from_numpy(ids).to("cuda")
+    run("byt5_encode", lambda: t5_encode(byt5, ids, BYT5_BASE), _n_params(byt5))
+    del byt5
+    torch.cuda.empty_cache()
+
+    # the SDXL stack through the general conditioner, held to the specialized one
+    ccfg = ConditionerConfig()
+    cond = init_conditioner_params(ccfg, seed=75, device="cuda", dtype=bf16)
+    specs = sdxl_embedder_specs(ccfg)
+    batch = {}
+    for suffix, rows in (("", 1), ("_ref", 8)):
+        batch["tokens_clip" + suffix] = clip_tokens(torch, rows, ccfg.clip_l.vocab_size, "cuda")
+        batch["tokens_open" + suffix] = clip_tokens(torch, rows, ccfg.open_clip.vocab_size,
+                                                    "cuda")
+        for key in ("original_size", "crop_coords", "target_size"):
+            batch[key + suffix] = torch.full((rows, 2), 0.0 if key == "crop_coords" else 1024.0,
+                                             device="cuda")
+    got = run("general_conditioner_sdxl", lambda: general_conditioner_apply(cond, specs, batch),
+              _n_params(cond))
+    with torch.inference_mode():
+        want = apply_conditioner(cond, batch, ccfg)
+    errs = {}
+    for key in ("crossattn", "vector"):
+        if tuple(got[key].shape) != tuple(want[key].shape):
+            raise RuntimeError(f"[aux] general conditioner {key} shape {tuple(got[key].shape)} "
+                               f"vs specialized {tuple(want[key].shape)}")
+        errs[key] = (float((got[key].float() - want[key].float()).abs().max()),
+                     AUX_COND_TOL * float(want[key].float().abs().max()))
+    log("[aux] general vs specialized conditioner on the card (1 + 8 rows): "
+        + ", ".join(f"{k} max-abs {e:.3e} (tol {tol:.3e})" for k, (e, tol) in errs.items()))
+    report["general_conditioner_sdxl"]["vs_specialized"] = errs
+    if any(e > tol for e, tol in errs.values()):
+        raise RuntimeError("[aux] the general conditioner disagrees with apply_conditioner")
+    del got, want
+    open_ids = clip_tokens(torch, 2, OPEN_CLIP_BIGG_CONFIG.vocab_size, "cuda")
+    run("open_clip_embedder2_bigG", lambda: open_clip_embedder2(
+        cond["open_clip"], open_ids, OPEN_CLIP_BIGG_CONFIG, layer="penultimate", legacy=False,
+        return_pooled=True), _n_params(cond["open_clip"]))
+    del cond
+    torch.cuda.empty_cache()
+
+    vcfg = ClipVisionConfig()
+    vit = init_clip_vision_params(vcfg, seed=76, device="cuda", dtype=bf16)
+    images = (torch.rand((8, 224, 224, 3), generator=gen, device="cuda") * 2 - 1).to(bf16)
+    ucg_gen = torch.Generator(device="cuda").manual_seed(77)
+    run("open_clip_image_embedder_vit_h14", lambda: open_clip_image_embedder(
+        vit, images, vcfg, draws=Draws(ucg_gen), ucg_rate=0.1), _n_params(vit))
+    del vit, images
+
+    ecfg = EncoderUNetConfig(**CLASSIFIER_256)
+    clf = init_encoder_unet_params(ecfg, seed=78, device="cuda", dtype=bf16)
+    clf = perturb_zero_leaves(torch, clf, seed=79)
+    x = torch.randn((8, 256, 256, 3), generator=gen, device="cuda").to(bf16)
+    steps = torch.randint(0, 1000, (8,), generator=gen, device="cuda").float()
+    run("encoder_unet_classifier_256", lambda: encoder_unet_apply(clf, x, steps, ecfg),
+        _n_params(clf))
+    del clf, x
+
+    x = torch.randn((4, 256, 256, 3), generator=gen, device="cuda").to(bf16)
+    steps = torch.randint(0, 1000, (4,), generator=gen, device="cuda").float()
+    for attn_type in ("vanilla", "linear"):
+        dcfg = DDPMModelConfig(**DDPM_LSUN_256, attn_type=attn_type)
+        ddpm = init_ddpm_model_params(dcfg, seed=80, device="cuda", dtype=bf16)
+        run(f"ddpm_lsun256_{attn_type}", lambda: ddpm_model_apply(ddpm, x, steps, cfg=dcfg),
+            _n_params(ddpm))
+        del ddpm
+    del x
+    torch.cuda.empty_cache()
+
+    init = Init(81, "cuda", bf16)
+    blk_self = init_single_layer_block(init, 1280, 20, 64)
+    blk_ctx = init_single_layer_block(init, 1280, 20, 64, context_dim=2048)
+    x = torch.randn((2, 1024, 1280), generator=gen, device="cuda").to(bf16)
+    ctx = torch.randn((2, 77, 2048), generator=gen, device="cuda").to(bf16)
+    run("single_layer_block_self", lambda: single_layer_block_apply(blk_self, x, n_heads=20),
+        _n_params(blk_self))
+    run("single_layer_block_context", lambda: single_layer_block_apply(
+        blk_ctx, x, ctx, n_heads=20), _n_params(blk_ctx))
+    del blk_self, blk_ctx, x, ctx
+
+    vae_cfg, lcfg = VAEConfig(), LowScaleConfig()
+    vae = init_vae_params(vae_cfg, seed=82, device="cuda", dtype=bf16)
+    x = (torch.rand((2, 512, 512, 3), generator=gen, device="cuda") * 2 - 1).to(bf16)
+    draw_gen = torch.Generator(device="cuda").manual_seed(83)
+    z, _ = run("low_scale_encode_sdxl_vae", lambda: low_scale_encode(
+        vae, x, Draws(draw_gen), lcfg, vae_cfg), _n_params(vae["encoder"]))
+    saved = os.environ.get("CD360_VAE_CONV")
+    os.environ["CD360_VAE_CONV"] = "pallas"
+    try:
+        zb = z.to(bf16)  # the decoder in bf16, where the conv3x3 kernel takes it
+        run("low_scale_decode_sdxl_vae", lambda: low_scale_decode(vae, zb, lcfg, vae_cfg),
+            _n_params(vae["decoder"]))
+    finally:
+        if saved is None:
+            os.environ.pop("CD360_VAE_CONV", None)
+        else:
+            os.environ["CD360_VAE_CONV"] = saved
+    run("gaussian_encoder_sdxl_vae", lambda: gaussian_encoder(vae, x, Draws(draw_gen),
+                                                              vae_cfg=vae_cfg)[1],
+        _n_params(vae["encoder"]))
+    del vae, x, z, zb
+    torch.cuda.empty_cache()
+
+    launches = {k: c.launches for k, c in counters.items()}
+    by_shape = {(k, shape): n for k, c in counters.items()
+                for shape, n in c.launches_by_shape.items()}
+    report["wall_s"] = time.time() - t_phase
+    print(json.dumps({"aux_path": report}), flush=True)
+    log(f"[aux] launches {json.dumps(launches)}; phase wall {report['wall_s']:.1f} s")
+    return launches, by_shape
+
+
+# ---------------------------------------------------------------------------
 # phase 6: kernels vs plain versions through small samples and a train step
 # ---------------------------------------------------------------------------
 
@@ -2876,6 +3183,175 @@ def run_small_ae_check(torch):
                            "the CPU")
 
 
+# the CPU tests' tiny sizes (tests/test_torch_{t5,embedders,general_conditioner,
+# encoder_unet,extra_blocks}.py); the single-layer block at 2 heads of 64
+# over 256 tokens, so its self-attention takes the attention kernel
+SMALL_AUX_T5 = dict(vocab_size=99, d_model=32, d_kv=8, d_ff=64, num_layers=3, num_heads=4)
+SMALL_AUX_TEXT = dict(vocab_size=64, width=32, layers=3, heads=4, context_length=16,
+                      text_projection=True)
+SMALL_AUX_VISION = dict(image_size=16, patch_size=8, width=32, layers=2, heads=4, embed_dim=12,
+                        act="quick_gelu")
+SMALL_AUX_VAE = dict(ch=16, ch_mult=(1, 2), num_res_blocks=1)
+SMALL_AUX_COND = (dict(vocab_size=64, width=32, layers=2, heads=4, context_length=8),
+                  dict(vocab_size=64, width=48, layers=2, heads=4, context_length=8, act="gelu",
+                       text_projection=True))
+SMALL_AUX_UNET = dict(image_size=8, in_channels=3, model_channels=32, out_channels=5,
+                      num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                      num_heads=2, num_head_channels=16)
+SMALL_AUX_DDPM = dict(ch=32, out_ch=3, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
+                      in_channels=3, resolution=16)
+
+
+def run_small_aux_check(torch, dev="cuda"):
+    """The five auxiliary modules at the CPU tests' tiny sizes, from weights
+    and inputs made on the CPU, run on the card in bf16 (weights and
+    activations; the kernels) and on the CPU in f32 (plain versions), the
+    same draws given to both: T5 (gated, 77 tokens), the class embedder,
+    open_clip_embedder2, open_clip_image_embedder (UCG 0.5), the spatial
+    rescaler with its mapper, low_scale_encode / low_scale_decode and
+    gaussian_encoder on a tiny VAE, the general conditioner on a tiny SDXL
+    stack (target + reference rows), the EncoderUNet with each pool, the
+    DDPM model with each attention, the single-layer block (self and
+    context), SpatialSelfAttention, linear attention and the transposed
+    upsample. Each output within SMALL_TOL of max(1, max|ref|); the GroupNorm,
+    LayerNorm and attention kernels must have launched. The T5 position
+    bias made on the card (the host-built bucket table moved there) must
+    equal the CPU's bit for bit, at 77 and 512 tokens; the bucket formula
+    evaluated on the card itself is logged beside it."""
+    from custom_diffusion360_torch.draws import Draws
+    from custom_diffusion360_torch.models import clip, conditioner, embedders, encoder_unet, t5
+    from custom_diffusion360_torch.models import extra_blocks as eb
+    from custom_diffusion360_torch.models import general_conditioner as gc
+    from custom_diffusion360_torch.models.nn import Init
+    from custom_diffusion360_torch.models.vae import VAEConfig, init_vae_params
+    from custom_diffusion360_torch.ops.block_attention import attention_fwd
+    from custom_diffusion360_torch.ops.norms import group_norm_fused, layer_norm_fused
+
+    counters = (group_norm_fused, layer_norm_fused, attention_fwd)
+    before = [c.launches for c in counters]
+    ok = True
+
+    # T5's buckets: the bias the card uses, and the formula evaluated there
+    t5_cfg = t5.T5Config(**SMALL_AUX_T5)
+    rel_bias = {"rel_bias": torch.randn((32, 4), generator=torch.Generator().manual_seed(90))}
+    for seq_len in (77, 512):
+        host = t5.position_bias(rel_bias, seq_len, t5_cfg, "cpu")
+        card = t5.position_bias({"rel_bias": rel_bias["rel_bias"].to(dev)}, seq_len, t5_cfg, dev)
+        same = torch.equal(card.cpu(), host)
+        pos = torch.arange(seq_len, device=dev)
+        on_card = t5.relative_position_bucket(pos[None, :] - pos[:, None], 32, 128).cpu()
+        differ = int((on_card != t5.relative_position_buckets(seq_len, 32, 128)).sum())
+        ok &= same
+        verdict = "equals" if same else "DIFFERS from"
+        log(f"[small-aux] T5 position bias at L = {seq_len}: the card's {verdict} the CPU's bit "
+            f"for bit; the bucket formula evaluated on the card differs from the host table at "
+            f"{differ} of {seq_len * seq_len} entries")
+
+    init = Init(91, "cpu")
+    tcfg = clip.ClipTextConfig(**SMALL_AUX_TEXT)
+    vcfg = clip.ClipVisionConfig(**SMALL_AUX_VISION)
+    vae_cfg = VAEConfig(**SMALL_AUX_VAE)
+    ccfg = conditioner.ConditionerConfig(clip_l=clip.ClipTextConfig(**SMALL_AUX_COND[0]),
+                                         open_clip=clip.ClipTextConfig(**SMALL_AUX_COND[1]),
+                                         size_outdim=16)
+    ucfgs = {pool: encoder_unet.EncoderUNetConfig(**SMALL_AUX_UNET, pool=pool,
+                                                  use_new_attention_order=pool == "attention")
+             for pool in ("adaptive", "attention", "spatial", "spatial_v2")}
+    dcfgs = {a: eb.DDPMModelConfig(**SMALL_AUX_DDPM, attn_type=a)
+             for a in ("vanilla", "linear", "none")}
+    params = {
+        "t5": t5.init_t5_params(t5_cfg, seed=92, device="cpu"),
+        "cls": embedders.class_embedder_init(init, 8, 10),
+        "text": clip.init_clip_text_params(tcfg, seed=93, device="cpu"),
+        "vision": clip.init_clip_vision_params(vcfg, seed=94, device="cpu"),
+        "mapper": embedders.spatial_rescaler_init(init, 5, 8, kernel_size=3, bias=True),
+        "vae": init_vae_params(vae_cfg, seed=95, device="cpu"),
+        "cond": conditioner.init_conditioner_params(ccfg, seed=96, device="cpu"),
+        "unet": {pool: encoder_unet.init_encoder_unet_params(c, seed=97, device="cpu")
+                 for pool, c in ucfgs.items()},
+        "ddpm": {a: eb.init_ddpm_model_params(c, seed=98, device="cpu")
+                 for a, c in dcfgs.items()},
+        "slb": eb.init_single_layer_block(init, 128, 2, 64),
+        "slb_ctx": eb.init_single_layer_block(init, 128, 2, 64, context_dim=48),
+        "ssa": eb.init_spatial_self_attention(init, 64),
+        "lin": eb.init_linear_attention(init, 32, heads=4, dim_head=8),
+        "up": eb.init_transposed_upsample(init, 16, 24),
+    }
+    params = perturb_zero_leaves(torch, params, seed=99, std=0.1)
+    gen = torch.Generator().manual_seed(100)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen)
+
+    ints = lambda hi, *shape: torch.randint(0, hi, shape, generator=gen)  # noqa: E731
+    inputs = {
+        "t5_tokens": ints(99, 2, 77), "cls": ints(10, 3), "text_tokens": ints(60, 2, 16),
+        "images": torch.rand((3, 20, 20, 3), generator=gen) * 2 - 1,
+        "ucg": torch.tensor([0.2, 0.7, 0.4]), "feat": rnd(2, 8, 8, 5),
+        "vae_x": torch.rand((2, 16, 16, 3), generator=gen) * 2 - 1,
+        "vae_eps": rnd(2, 8, 8, 4), "noise_level": torch.tensor([3, 41]),
+        "noise": rnd(2, 8, 8, 4), "unet_x": rnd(2, 8, 8, 3), "ddpm_x": rnd(2, 16, 16, 3),
+        "steps": torch.tensor([3.0, 500.0]), "slb_x": rnd(2, 256, 128), "slb_ctx": rnd(2, 7, 48),
+        "ssa_x": rnd(2, 8, 8, 64), "lin_x": rnd(2, 8, 8, 32), "up_x": rnd(2, 5, 7, 16),
+    }
+    batch = {}
+    for suffix, rows in (("", 2), ("_ref", 6)):
+        for key in ("tokens_clip", "tokens_open"):
+            batch[key + suffix] = ints(60, rows, 8)
+        for key in ("original_size", "crop_coords", "target_size"):
+            batch[key + suffix] = torch.rand((rows, 2), generator=gen) * 768 + 256
+    lcfg = embedders.LowScaleConfig(output_size=12, max_noise_level=50)
+
+    def outputs(device, dtype):
+        p = _map(params, lambda x: x.to(device, dtype))
+        x = {k: (v.to(device, dtype) if v.is_floating_point() and k not in (
+            "ucg", "steps", "vae_eps", "noise") else v.to(device)) for k, v in inputs.items()}
+        b = {k: v.to(device) for k, v in batch.items()}
+        out = {"t5": t5.t5_encode(p["t5"], x["t5_tokens"], t5_cfg),
+               "class_embedder": embedders.class_embedder_apply(p["cls"], x["cls"])}
+        z, pooled = embedders.open_clip_embedder2(p["text"], x["text_tokens"], tcfg,
+                                                  layer="penultimate", legacy=False,
+                                                  return_pooled=True)
+        out.update({"open_clip_embedder2": z, "open_clip_embedder2 pooled": pooled})
+        out["open_clip_image_embedder"] = embedders.open_clip_image_embedder(
+            p["vision"], x["images"], vcfg, draws=Draws(given={"ucg": x["ucg"]}), ucg_rate=0.5)
+        out["spatial_rescaler"] = embedders.spatial_rescaler(x["feat"], method="bilinear",
+                                                             params=p["mapper"])
+        draws = Draws(given={k: x[k] for k in ("vae_eps", "noise_level", "noise")})
+        z, _ = embedders.low_scale_encode(p["vae"], x["vae_x"], draws, lcfg, vae_cfg)
+        out["low_scale_encode"] = z
+        out["low_scale_decode"] = embedders.low_scale_decode(p["vae"], z.to(dtype), lcfg, vae_cfg)
+        out["gaussian_encoder"] = embedders.gaussian_encoder(p["vae"], x["vae_x"], draws,
+                                                             vae_cfg=vae_cfg)[1]
+        cond = gc.general_conditioner_apply(p["cond"], sdxl_embedder_specs(ccfg), b)
+        out.update({f"general_conditioner {k}": v for k, v in cond.items()})
+        for pool, c in ucfgs.items():
+            out[f"encoder_unet {pool}"] = encoder_unet.encoder_unet_apply(
+                p["unet"][pool], x["unet_x"], x["steps"], c)
+        for a, c in dcfgs.items():
+            out[f"ddpm {a}"] = eb.ddpm_model_apply(p["ddpm"][a], x["ddpm_x"], x["steps"], cfg=c)
+        out["single_layer_block self"] = eb.single_layer_block_apply(p["slb"], x["slb_x"],
+                                                                     n_heads=2)
+        out["single_layer_block context"] = eb.single_layer_block_apply(
+            p["slb_ctx"], x["slb_x"], x["slb_ctx"], n_heads=2)
+        out["spatial_self_attention"] = eb.spatial_self_attention_apply(p["ssa"], x["ssa_x"])
+        out["linear_attention"] = eb.linear_attention_apply(p["lin"], x["lin_x"], heads=4)
+        out["transposed_upsample"] = eb.transposed_upsample_apply(p["up"], x["up_x"])
+        return out
+
+    with torch.inference_mode():
+        ref = outputs("cpu", torch.float32)
+        got = outputs(dev, torch.bfloat16)
+    for name in ref:
+        ok &= _compare(torch, "small-aux", name, ref[name], got[name])
+    launched = {c.__name__: c.launches - n for c, n in zip(counters, before)}
+    log(f"[small-aux] kernel launches on the card: {json.dumps(launched)}")
+    ok &= all(launched.values())
+    if not ok:
+        raise RuntimeError("small auxiliary models on the card disagree with the CPU, or a "
+                           "kernel did not launch")
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -2962,6 +3438,7 @@ def main():
     paths["parallel"] = run_parallel_path(torch, counters)
     paths["evaluate"] = run_evaluate_path(torch, counters)
     paths["ae_train"] = run_ae_train_path(torch, counters)
+    paths["aux"] = run_aux_path(torch, counters)
     check_launched(torch, results, {key for _, shapes in paths.values() for key in shapes})
     time_attention_backward(torch, grad_shapes)
     run_small_check(torch)
@@ -2973,6 +3450,7 @@ def main():
     run_small_multi_check(torch)
     run_small_eval_check(torch)
     run_small_ae_check(torch)
+    run_small_aux_check(torch)
 
     failed = [r["name"] for r in results if not r["ok"]]
     if failed:
@@ -2986,7 +3464,8 @@ def main():
                 "train": set(counters) - switched, "cli": set(counters) - {"bilinear_bwd"},
                 "samplers": set(counters) - {"bilinear_bwd"},
                 "train_cli": set(counters) - switched, "parallel": set(counters),
-                "evaluate": {"layer_norm"}, "ae_train": {"group_norm", "attention", "conv3x3"}}
+                "evaluate": {"layer_norm"}, "ae_train": {"group_norm", "attention", "conv3x3"},
+                "aux": {"group_norm", "layer_norm", "attention", "conv3x3"}}
     for path, (launches, _) in paths.items():
         missing = sorted(k for k in expected[path] if launches[k] == 0)
         if missing:

@@ -11,7 +11,13 @@ is copied as it is, and a None leaf stays None. So a whole JAX
 encoder and ``quant_conv`` included) carries across, and so does an
 ``init_ae_engine`` tree ({"ae", "disc", "lpips"}: the scalar ``logvar``,
 the PatchGAN's and VGG16's kernels, ActNorm's ``loc`` / ``scale``, the
-LPIPS ``lins`` list, and ``lpips`` None without LPIPS). Nothing here
+LPIPS ``lins`` list, and ``lpips`` None without LPIPS). The auxiliary
+models' trees need no special case either: T5 (embedding, (in, out)
+projections, norms), the class embedder, the spatial rescaler's mapper
+conv, the EncoderUNet (``pos`` of the attention pool stays as it is) and
+the DDPM model; the transposed upsample's (kh, kw, OUT, IN) kernel turns to
+(IN, OUT, kh, kw), which is ``conv_transpose2d``'s weight layout
+(tests/test_torch_extra_blocks.py holds the outputs equal). Nothing here
 imports JAX.
 """
 from __future__ import annotations

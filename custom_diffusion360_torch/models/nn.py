@@ -99,19 +99,33 @@ def linear(p, x):
     return F.linear(x, w.t(), b)
 
 
-def conv2d(p, x, stride=1, padding="SAME"):
-    """x: NHWC; kernel: OIHW. padding "SAME" (odd kernels) or
-    ((top, bottom), (left, right)) with symmetric pairs."""
-    w = p["w"].to(x.dtype)
+def conv_padding(padding, size, kernel, stride):
+    """((top, bottom), (left, right)) of ``padding`` as XLA reads it:
+    "VALID" pads nothing; "SAME" pads each axis by max((ceil(n / s) - 1) s
+    + k - n, 0) in all, the smaller half first (so (0, 1) for a 3x3 kernel
+    at stride 2 on an even axis); explicit pairs pass through."""
+    if padding == "VALID":
+        return ((0, 0), (0, 0))
     if padding == "SAME":
-        pad = (w.shape[2] // 2, w.shape[3] // 2)
-    else:
-        (pt, pb), (pl, pr) = padding
-        if pt != pb or pl != pr:
-            raise ValueError(f"asymmetric padding {padding} not supported")
-        pad = (pt, pl)
+        pads = []
+        for n, k in zip(size, kernel):
+            total = max((-(-n // stride) - 1) * stride + k - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+    return tuple(tuple(pair) for pair in padding)
+
+
+def conv2d(p, x, stride=1, padding="SAME"):
+    """x: NHWC; kernel: OIHW. padding "SAME", "VALID" or ((top, bottom),
+    (left, right)), as the JAX conv2d takes it; an asymmetric pair is an
+    NHWC zero pad first, so the conv still reads a channels-last view."""
+    w = p["w"].to(x.dtype)
+    (pt, pb), (pl, pr) = conv_padding(padding, x.shape[1:3], w.shape[2:], stride)
+    if pt != pb or pl != pr:
+        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+        pt = pl = 0
     b = p["b"].to(x.dtype) if "b" in p else None
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride, padding=pad)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride, padding=(pt, pl))
     return y.permute(0, 2, 3, 1)
 
 
@@ -199,13 +213,18 @@ def trunc_exp(x):
     return _TruncExp.apply(x)
 
 
+def nearest_indices(src: int, dst: int, device):
+    """Source index of each of ``dst`` outputs, F.interpolate's nearest
+    rule as the JAX package computes it: floor(o * f32(src / dst))."""
+    return torch.floor(torch.arange(dst, dtype=torch.float32) * (src / dst)).long().to(device)
+
+
 def nearest_resize_tokens(x, src_res: int, dst_res: int):
     """(..., src*src, C) -> (..., dst*dst, C) nearest neighbour (torch
     F.interpolate mode='nearest' semantics: floor(idx * src/dst))."""
     if src_res == dst_res:
         return x
-    idx = torch.floor(torch.arange(dst_res, dtype=torch.float32)
-                      * (src_res / dst_res)).long().to(x.device)
+    idx = nearest_indices(src_res, dst_res, x.device)
     img = x.reshape(tuple(x.shape[:-2]) + (src_res, src_res, x.shape[-1]))
     img = img.index_select(-3, idx).index_select(-2, idx)
     return img.reshape(tuple(x.shape[:-2]) + (dst_res * dst_res, x.shape[-1]))

@@ -116,13 +116,18 @@ def test_port_sources_name_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["engine", "unet", "vae", "from_jax", "ae_engine",
-                                   "init_ae_engine", "compute_fid", "load_discriminator"])
+                                   "init_ae_engine", "compute_fid", "load_discriminator",
+                                   "t5", "load_t5", "encoder_unet", "ddpm", "class_uc"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
     from custom_diffusion360_torch.cli.evaluate import compute_fid
     from custom_diffusion360_torch.engine import Engine
     from custom_diffusion360_torch.models.discriminator import load_discriminator_torch
+    from custom_diffusion360_torch.models.embedders import class_embedder_uc
+    from custom_diffusion360_torch.models.encoder_unet import init_encoder_unet_params
+    from custom_diffusion360_torch.models.extra_blocks import init_ddpm_model_params
+    from custom_diffusion360_torch.models.t5 import T5Config, init_t5_params, load_t5_torch
     from custom_diffusion360_torch.models.unet import UNetConfig, init_unet_params
     from custom_diffusion360_torch.models.vae import VAEConfig, init_vae_params
     from custom_diffusion360_torch.train.ae_engine import AEEngine, init_ae_engine
@@ -137,6 +142,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
         "init_ae_engine": lambda: init_ae_engine(),
         "compute_fid": lambda: compute_fid({}, images, images),
         "load_discriminator": lambda: load_discriminator_torch({}),
+        "t5": lambda: init_t5_params(T5Config(num_layers=1)),
+        "load_t5": lambda: load_t5_torch({}),
+        "encoder_unet": lambda: init_encoder_unet_params(),
+        "ddpm": lambda: init_ddpm_model_params(),
+        "class_uc": lambda: class_embedder_uc(10, 2),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

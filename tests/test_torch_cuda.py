@@ -591,3 +591,69 @@ def test_ae_train_step_in_bf16_launches_the_kernels(gen, monkeypatch):
         assert moved > 0, side
     assert all(c.launches > n for c, n in zip(counters, launches))
     assert any(shape[4] == 512 for shape in attention_fwd.launches_by_shape)
+
+
+# ---------------------------------------------------------------------------
+# the auxiliary models (T5, embedders, general conditioner, EncoderUNet,
+# extra blocks) on the card
+# ---------------------------------------------------------------------------
+
+
+def test_t5_position_bias_on_the_card_equals_the_cpu(gen):
+    """The bucket table is built on the host and copied: the card's bias is
+    the CPU's bit for bit."""
+    from custom_diffusion360_torch.models.t5 import T5Config, position_bias
+
+    cfg = T5Config(num_heads=4)
+    rel_bias = torch.randn((32, 4), generator=torch.Generator().manual_seed(0))
+    for seq_len in (77, 512, 1024):
+        host = position_bias({"rel_bias": rel_bias}, seq_len, cfg, "cpu")
+        card = position_bias({"rel_bias": rel_bias.cuda()}, seq_len, cfg, "cuda")
+        assert card.is_cuda and torch.equal(card.cpu(), host)
+
+
+def _ddpm_up_norm_shapes(ch, ch_mult, num_res_blocks, resolution):
+    """(HW, C) of every GroupNorm of the DDPM model's up path: the ResBlock
+    norms on [h | skip] and on their output."""
+    in_mult = (1,) + tuple(ch_mult)
+    block_in = ch * ch_mult[-1]
+    res = resolution // 2 ** (len(ch_mult) - 1)
+    shapes = set()
+    for i in reversed(range(len(ch_mult))):
+        block_out = skip_in = ch * ch_mult[i]
+        for j in range(num_res_blocks + 1):
+            if j == num_res_blocks:
+                skip_in = ch * in_mult[i]
+            shapes |= {(res * res, block_in + skip_in), (res * res, block_out)}
+            block_in = block_out
+        if i:
+            res *= 2
+    return sorted(shapes)
+
+
+def test_group_norm_at_the_ddpm_up_path_shapes(gen):
+    """The LSUN-256 DDPM model's up-path norms (up to 1024 concatenated
+    channels) and the EncoderUNet spatial_v2 head's 2048-channel norm, bf16
+    with SiLU and f32 without, against the plain version."""
+    shapes = _ddpm_up_norm_shapes(128, (1, 1, 2, 2, 4, 4), 2, 256)
+    assert max(c for _, c in shapes) == 1024
+    cases = [(2, hw, c, "silu", torch.bfloat16) for hw, c in shapes]
+    cases += [(8, 1, 2048, None, torch.bfloat16), (8, 1, 2048, None, torch.float32)]
+    for n, hw, c, act, dtype in cases:
+        x = (torch.randn((n, hw, c), generator=gen, device="cuda") * 0.5 + 2.0).to(dtype)
+        scale = (torch.randn((c,), generator=gen, device="cuda") * 0.1 + 1.0).to(dtype)
+        bias = torch.randn((c,), generator=gen, device="cuda").to(dtype)
+        got = group_norm_fused(x, scale, bias, 32, 1e-5, act)
+        ref = _gn_plain(x.float(), scale, bias, 32, 1e-5, act)
+        tol = (1e-2 if dtype == torch.bfloat16 else 1e-5) * float(ref.abs().max())
+        assert float((got.float() - ref).abs().max()) <= tol, (n, hw, c, act, dtype)
+
+
+def test_auxiliary_models_on_the_card_match_the_cpu(gen):
+    """chip_smoke's [small-aux] check: the five modules at the CPU tests'
+    tiny sizes, bf16 through the kernels on the card against f32 on the CPU,
+    within 5e-2 of max(1, max|ref|), the GroupNorm, LayerNorm and attention
+    kernels launched, and the T5 bias on the card equal to the CPU's."""
+    import chip_smoke
+
+    chip_smoke.run_small_aux_check(torch)
