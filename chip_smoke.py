@@ -236,6 +236,11 @@ def graph_ms(fn, calls=GRAPH_CALLS, replays=5, stream=None):
     return ms
 
 
+def launched(wrapper):
+    """The launches an op wrapper has counted, over all its shapes."""
+    return sum(wrapper.launches_by_shape.values())
+
+
 def bound(nbytes, flops, peak=H100_BF16_FLOPS):
     """(least ms, "bytes" or "operations"): bytes at the HBM rate vs
     operations at ``peak`` FLOP/s."""
@@ -939,11 +944,10 @@ def run_main_path(torch, counters):
 
     run()  # warm-up: library handles, cuDNN plans, allocator
     for c in counters.values():
-        c.launches = 0
         c.launches_by_shape.clear()
     torch.cuda.reset_peak_memory_stats()
     z, img, steps, t_decode, t_total = run()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     by_shape = {(k, shape): n for k, c in counters.items()
                 for shape, n in c.launches_by_shape.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1134,11 +1138,10 @@ def run_train_path(torch, counters):
 
     t_warm = step(0)[0]
     for c in counters.values():
-        c.launches = 0
         c.launches_by_shape.clear()
     torch.cuda.reset_peak_memory_stats()
     runs = [step(1 + i) for i in range(TRAIN_STEPS)]
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     by_shape = {(k, shape): n for k, c in counters.items()
                 for shape, n in c.launches_by_shape.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1296,13 +1299,12 @@ def run_cli_path(torch, counters, main_decode_ms):
             marks.append(time.perf_counter())
 
         for c in counters.values():
-            c.launches = 0
             c.launches_by_shape.clear()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         (rec,) = cli.main(setup.argv(*base, "--num_steps", str(STEPS)), callback=cb)
         t_all = time.perf_counter() - t0
-        launches = {k: c.launches for k, c in counters.items()}
+        launches = {k: launched(c) for k, c in counters.items()}
         by_shape = {(k, shape): n for k, c in counters.items()
                     for shape, n in c.launches_by_shape.items()}
         peak = torch.cuda.max_memory_allocated()
@@ -1438,7 +1440,6 @@ def run_train_cli_path(torch, counters):
                     "--use_ema", "--device", "cuda", "--override", "compute_dtype=bfloat16",
                     "--sample_every", "2", "--log_steps_increase"]
             for c in counters.values():
-                c.launches = 0
                 c.launches_by_shape.clear()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1446,7 +1447,7 @@ def run_train_cli_path(torch, counters):
             torch.cuda.synchronize()
             train_s = time.perf_counter() - t0
             peak_train = torch.cuda.max_memory_allocated()
-            train_launches = {k: c.launches for k, c in counters.items()}
+            train_launches = {k: launched(c) for k, c in counters.items()}
             with open(os.path.join(out, "metrics.csv"), newline="") as f:
                 rows = list(csv.DictReader(f))
             steps = [r for r in rows if r.get("loss")]
@@ -1491,7 +1492,7 @@ def run_train_cli_path(torch, counters):
                 "4", "--device", "cuda", "--dtype", "bfloat16"])
             sample_s = time.perf_counter() - t0
             peak_sample = torch.cuda.max_memory_allocated()
-            launches = {k: c.launches for k, c in counters.items()}
+            launches = {k: launched(c) for k, c in counters.items()}
             by_shape = {(k, shape): n for k, c in counters.items()
                         for shape, n in c.launches_by_shape.items()}
             img = rec["images"][0]
@@ -1617,7 +1618,6 @@ def run_samplers_path(torch, counters):
     try:
         with cli_setup(torch, UNetConfig(), LATENT, (768, 1280), on_cpu=False) as setup:
             for c in counters.values():
-                c.launches = 0
                 c.launches_by_shape.clear()
             torch.cuda.reset_peak_memory_stats()
             for label, name, extra in SAMPLER_RUNS:
@@ -1655,7 +1655,7 @@ def run_samplers_path(torch, counters):
             problems.append("samplemulti: no finite, non-constant image")
     finally:
         Denoiser.__call__ = orig_call
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     by_shape = {(k, shape): n for k, c in counters.items()
                 for shape, n in c.launches_by_shape.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1839,7 +1839,6 @@ def run_parallel_path(torch, counters, dev="cuda"):
     problems = []
     report = {}
     for c in counters.values():
-        c.launches = 0
         c.launches_by_shape.clear()
     orig_init = patch_init_params(torch, on_cpu=False)
     try:
@@ -1992,7 +1991,7 @@ def run_parallel_path(torch, counters, dev="cuda"):
                 os.environ[k] = v
         if dist.is_initialized():
             dist.destroy_process_group()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     by_shape = {(k, shape): n for k, c in counters.items()
                 for shape, n in c.launches_by_shape.items()}
     report["launches"] = launches
@@ -2173,7 +2172,6 @@ def run_evaluate_path(torch, counters, dev="cuda"):
     }
     saved = {key: getattr(*key) for key in patches}
     for c in counters.values():
-        c.launches = 0
         c.launches_by_shape.clear()
     try:
         for (mod, name), record in patches.items():
@@ -2200,7 +2198,7 @@ def run_evaluate_path(torch, counters, dev="cuda"):
     finally:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     by_shape = {(k, shape): n for k, c in counters.items()
                 for shape, n in c.launches_by_shape.items()}
     rates = {}
@@ -2357,11 +2355,10 @@ def run_ae_train_path(torch, counters):
         before = {side: [leaf.detach().clone() for leaf in tree_leaves(state.params[side])]
                   for side in ("ae", "disc")}
         for c in counters.values():
-            c.launches = 0
             c.launches_by_shape.clear()
         torch.cuda.reset_peak_memory_stats()
         runs = [step(1 + i) for i in range(TRAIN_STEPS)]
-        launches = {k: c.launches for k, c in counters.items()}
+        launches = {k: launched(c) for k, c in counters.items()}
         by_shape = {(k, shape): n for k, c in counters.items()
                     for shape, n in c.launches_by_shape.items()}
         peak = torch.cuda.max_memory_allocated()
@@ -2518,14 +2515,13 @@ def run_aux_path(torch, counters):
     report = {}
     t_phase = time.time()
     for c in counters.values():
-        c.launches = 0
         c.launches_by_shape.clear()
 
     def run(name, fn, params):
         """Warm-up, AUX_CALLS timed calls; logs and keeps the numbers."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        before = {k: c.launches for k, c in counters.items()}
+        before = {k: launched(c) for k, c in counters.items()}
         with torch.inference_mode():
             out = fn()
             torch.cuda.synchronize()
@@ -2539,8 +2535,8 @@ def run_aux_path(torch, counters):
                 else out if isinstance(out, (tuple, list)) else [out])
         outs = [o for o in outs if isinstance(o, torch.Tensor)]
         finite = all(bool(torch.isfinite(o.float()).all()) for o in outs)
-        per_call = {k: (c.launches - before[k]) / (AUX_CALLS + 1) for k, c in counters.items()
-                    if c.launches > before[k]}
+        per_call = {k: (launched(c) - before[k]) / (AUX_CALLS + 1) for k, c in counters.items()
+                    if launched(c) > before[k]}
         rec = {"ms_median": statistics.median(times), "ms_min": min(times),
                "ms_max": max(times), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                "params_m": params / 1e6, "launches_per_call": per_call,
@@ -2680,7 +2676,7 @@ def run_aux_path(torch, counters):
     del vae, x, z, zb
     torch.cuda.empty_cache()
 
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = {k: launched(c) for k, c in counters.items()}
     by_shape = {(k, shape): n for k, c in counters.items()
                 for shape, n in c.launches_by_shape.items()}
     report["wall_s"] = time.time() - t_phase
@@ -2768,12 +2764,12 @@ def run_small_cli_check(torch):
 
     with cli_setup(torch, cli.SMOKE_CFG.unet, 32, widths, on_cpu=True) as setup:
         for device, dtype in (("cpu", "float32"), ("cuda", "bfloat16")):
-            before = attention_bnhd_fwd.launches
+            before = launched(attention_bnhd_fwd)
             (rec,) = cli.main(setup.argv("--smoke", "--device", device, "--dtype", dtype,
                                          "--num_steps", "3", "--num_images", "1",
                                          "--resolution", "256", "--num_ref", "4"))
             imgs[device] = rec["images"].astype(np.float32)
-            bnhd[device] = attention_bnhd_fwd.launches - before
+            bnhd[device] = launched(attention_bnhd_fwd) - before
     err = float(np.abs(imgs["cuda"] - imgs["cpu"]).max())
     tol = SMALL_TOL * 255.0
     ok = err <= tol and bnhd["cuda"] > 0 and float(imgs["cpu"].std()) > 1.0
@@ -3068,7 +3064,7 @@ def run_small_eval_check(torch):
               "vision": init_clip_vision_params(vcfg, 1, "cpu"),
               "text": init_clip_text_params(tcfg, 2, "cpu")}
     outs = {}
-    before = layer_norm_fused.launches
+    before = launched(layer_norm_fused)
     for dev in ("cpu", "cuda"):
         p = _map(params, lambda x: x.to(dev))
         with torch.inference_mode():
@@ -3081,7 +3077,7 @@ def run_small_eval_check(torch):
                                      tcfg),
                 "CLIP-I": clip_image_similarity(p["vision"], a.to(dev), b.to(dev), vcfg),
             }
-    ok = layer_norm_fused.launches > before
+    ok = launched(layer_norm_fused) > before
     for what, ref in outs["cpu"].items():
         got = outs["cuda"][what].float().cpu()
         err = float((got - ref).abs().max())
@@ -3090,7 +3086,8 @@ def run_small_eval_check(torch):
         log(f"[small-eval] {what} {tuple(ref.shape)}: max-abs err cuda-f32 vs cpu-f32 "
             f"{err:.4e} (tol {tol:.4e}, max|ref| {float(ref.abs().max()):.4f}) "
             f"{'OK' if err <= tol else 'FAIL'}")
-    log(f"[small-eval] LayerNorm kernel launches on the card: {layer_norm_fused.launches - before}")
+    log("[small-eval] LayerNorm kernel launches on the card: "
+        f"{launched(layer_norm_fused) - before}")
     if not ok:
         raise RuntimeError("small evaluation towers on the card disagree with the CPU")
 
@@ -3133,7 +3130,7 @@ def run_small_ae_check(torch):
     x = torch.rand((2, 32, 32, 3), generator=gen) * 2.0 - 1.0
     eps = torch.randn((2, 32, 32, 4), generator=gen)
     outs = {}
-    gn_before = group_norm_fused.launches
+    gn_before = launched(group_norm_fused)
     for dev, dtype in (("cpu", torch.float32), ("cpu", torch.bfloat16),
                        ("cuda", torch.bfloat16)):
         eng = AEEngine(cfg, device=dev)
@@ -3143,7 +3140,7 @@ def run_small_ae_check(torch):
                         for leaf in tree_leaves(state.params[side])]
                  for side, opt in (("ae", state.opt_ae), ("disc", state.opt_disc))}
         outs[dev, dtype] = ({k: float(v) for k, v in logs.items()}, grads)
-    ok = group_norm_fused.launches > gn_before
+    ok = launched(group_norm_fused) > gn_before
     (l_ref, g_ref), (_, g_plain) = outs["cpu", torch.float32], outs["cpu", torch.bfloat16]
     l_got, g_got = outs["cuda", torch.bfloat16]
     for k in sorted(l_ref):
@@ -3169,15 +3166,16 @@ def run_small_ae_check(torch):
     lengths = torch.linspace(0.5, 3.5, 4).expand(1, 64, 4)
     pts = ray_points_from_rays(rays[:, 0], lengths)
     xref = torch.randn((1, 2, 64, 64), generator=gen)
-    bl_before = bilinear_sample.launches
+    bl_before = launched(bilinear_sample)
     enc = {dev: nerf_encoding_apply(_map(nparams, lambda t: t.to(dev)), cams.to(dev),
                                     xref.to(dev), pts.to(dev), rays.to(dev), None, ncfg)
            for dev in ("cpu", "cuda")}
-    ok &= bilinear_sample.launches > bl_before
+    ok &= launched(bilinear_sample) > bl_before
     ok &= _compare(torch, "small-ae", "nerf_encoding_apply out", enc["cpu"][0], enc["cuda"][0])
     ok &= _compare(torch, "small-ae", "nerf_encoding_apply attn", enc["cpu"][1], enc["cuda"][1])
     log(f"[small-ae] kernel launches on the card: group_norm "
-        f"{group_norm_fused.launches - gn_before}, bilinear {bilinear_sample.launches - bl_before}")
+        f"{launched(group_norm_fused) - gn_before}, "
+        f"bilinear {launched(bilinear_sample) - bl_before}")
     if not ok:
         raise RuntimeError("small autoencoder step or NeRF encoding on the card disagrees with "
                            "the CPU")
@@ -3228,7 +3226,7 @@ def run_small_aux_check(torch, dev="cuda"):
     from custom_diffusion360_torch.ops.norms import group_norm_fused, layer_norm_fused
 
     counters = (group_norm_fused, layer_norm_fused, attention_fwd)
-    before = [c.launches for c in counters]
+    before = [launched(c) for c in counters]
     ok = True
 
     # T5's buckets: the bias the card uses, and the formula evaluated there
@@ -3344,9 +3342,9 @@ def run_small_aux_check(torch, dev="cuda"):
         got = outputs(dev, torch.bfloat16)
     for name in ref:
         ok &= _compare(torch, "small-aux", name, ref[name], got[name])
-    launched = {c.__name__: c.launches - n for c, n in zip(counters, before)}
-    log(f"[small-aux] kernel launches on the card: {json.dumps(launched)}")
-    ok &= all(launched.values())
+    counts = {c.__name__: launched(c) - n for c, n in zip(counters, before)}
+    log(f"[small-aux] kernel launches on the card: {json.dumps(counts)}")
+    ok &= all(counts.values())
     if not ok:
         raise RuntimeError("small auxiliary models on the card disagree with the CPU, or a "
                            "kernel did not launch")

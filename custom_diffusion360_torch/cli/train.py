@@ -96,7 +96,8 @@ def build_parser():
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--profile_steps", type=int, default=0,
-                   help="torch.profiler chrome trace of steps [10, 10+N) under profile/")
+                   help="torch.profiler chrome trace of steps [10, 10+N) under profile/, "
+                        "with the port's cd360.* spans (utils/trace.py) beside its ops")
     p.add_argument("--wandb", default=None,
                    help="wandb project name: mirror step metrics to wandb")
     p.add_argument("--smoke", action="store_true")

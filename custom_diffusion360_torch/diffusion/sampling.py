@@ -10,6 +10,7 @@ lives inside that closure) and shares the signature
 tensor whose row i is step i's (churn for Euler and Heun, the ancestral
 noise for the two ancestral samplers, which require it); ``scale_init``
 applies x *= sqrt(1 + sigma_0^2) first; ``callback(i)`` runs after step i.
+Under a profiler each step runs inside the span ``cd360.sample.step``.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..utils.trace import span_range
 
 
 def _append_dims(x, ndim):
@@ -91,7 +94,7 @@ def euler_edm_sample(denoise_fn: Callable, x, sigmas, cfg: SamplerConfig = Sampl
     b = x.shape[0]
     gammas = _gammas(sigmas, cfg)
     use_churn = cfg.s_churn > 0.0 and noise is not None
-    for i in range(sigmas.shape[0] - 1):
+    for i in span_range("cd360.sample.step", sigmas.shape[0] - 1):
         sigma, next_sigma = sigmas[i], sigmas[i + 1]
         sigma_hat = sigma * (gammas[i] + 1.0)
         if use_churn:
@@ -113,7 +116,7 @@ def heun_edm_sample(denoise_fn, x, sigmas, cfg: SamplerConfig = SamplerConfig(),
     b = x.shape[0]
     gammas = _gammas(sigmas, cfg)
     use_churn = cfg.s_churn > 0.0 and noise is not None
-    for i in range(sigmas.shape[0] - 1):
+    for i in span_range("cd360.sample.step", sigmas.shape[0] - 1):
         sigma, next_sigma = sigmas[i], sigmas[i + 1]
         sigma_hat = sigma * (gammas[i] + 1.0)
         if use_churn:
@@ -142,7 +145,7 @@ def euler_ancestral_sample(denoise_fn, x, sigmas, cfg: SamplerConfig = SamplerCo
     sigmas = _scalars(sigmas)
     x = _prep(x, sigmas, scale_init)
     b = x.shape[0]
-    for i in range(sigmas.shape[0] - 1):
+    for i in span_range("cd360.sample.step", sigmas.shape[0] - 1):
         sigma, next_sigma = sigmas[i], sigmas[i + 1]
         sigma_down, sigma_up = get_ancestral_step(sigma, next_sigma, cfg.eta)
         sv = _sigma_vec(sigma, b, x.device)
@@ -162,7 +165,7 @@ def dpmpp2s_ancestral_sample(denoise_fn, x, sigmas, cfg: SamplerConfig = Sampler
     sigmas = _scalars(sigmas)
     x = _prep(x, sigmas, scale_init)
     b = x.shape[0]
-    for i in range(sigmas.shape[0] - 1):
+    for i in span_range("cd360.sample.step", sigmas.shape[0] - 1):
         sigma, next_sigma = sigmas[i], sigmas[i + 1]
         sigma_down, sigma_up = get_ancestral_step(sigma, next_sigma, cfg.eta)
         sv = _sigma_vec(sigma, b, x.device)
@@ -196,7 +199,7 @@ def dpmpp2m_sample(denoise_fn, x, sigmas, cfg: SamplerConfig = SamplerConfig(), 
     x = _prep(x, sigmas, scale_init)
     b = x.shape[0]
     old_denoised = None
-    for i in range(sigmas.shape[0] - 1):
+    for i in span_range("cd360.sample.step", sigmas.shape[0] - 1):
         sigma, next_sigma = sigmas[i], sigmas[i + 1]
         denoised = denoise_fn(x, _sigma_vec(sigma, b, x.device))
         t, t_next = -torch.log(sigma), -torch.log(next_sigma)
@@ -245,7 +248,7 @@ def linear_multistep_sample(denoise_fn, x, sigmas, cfg: SamplerConfig = SamplerC
     b = x.shape[0]
     coeffs = torch.from_numpy(_lms_coeffs(sigmas.numpy(), cfg.order).astype(np.float32))
     ds = []  # most recent first
-    for i in range(sigmas.shape[0] - 1):
+    for i in span_range("cd360.sample.step", sigmas.shape[0] - 1):
         sv = _sigma_vec(sigmas[i], b, x.device)
         ds = [to_d(x, sv, denoise_fn(x, sv))] + ds[: cfg.order - 1]
         upd = coeffs[i, 0] * ds[0]
@@ -276,7 +279,7 @@ def multidiffusion_sample(denoise_fns: Sequence[Callable], noise, sigmas,
     sigmas = _scalars(sigmas)
     x = noise.float() * torch.sqrt(1.0 + sigmas[0] ** 2)
     gammas = _gammas(sigmas, cfg)
-    for i in range(sigmas.shape[0] - 1):
+    for i in span_range("cd360.sample.step", sigmas.shape[0] - 1):
         sigma_hat = sigmas[i] * (gammas[i] + 1.0)
         sv = _sigma_vec(sigma_hat, b, x.device)
         value = torch.zeros_like(x)

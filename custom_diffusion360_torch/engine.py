@@ -50,6 +50,7 @@ from .models.nn import torch_dtype
 from .models.transformer import fuse_attention_params
 from .models.unet import UNetConfig, init_unet_params, precompute_context_kv, unet_apply
 from .models.vae import VAEConfig, decode_first_stage, encode_first_stage, init_vae_params
+from .utils.trace import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +101,7 @@ class Engine:
         }
 
     @torch.inference_mode()
+    @spanned("cd360.decode")
     def decode_first_stage(self, params, z):
         return decode_first_stage(params["vae"], z, self.cfg.vae)
 
@@ -210,6 +212,7 @@ class Engine:
         return out
 
     @torch.inference_mode()
+    @spanned("cd360.sample")
     def sample(self, params, cond, uc, guider, *, noise, cams: Optional[Cameras] = None,
                references=None, choices=None, input_ref=None, sigmas_ref=None, mask_ref=None,
                num_steps: Optional[int] = None, cache_nerf: bool = True,
@@ -315,15 +318,16 @@ class Engine:
                                  for f in cams))
             mask_ref = None if mask_ref is None else mask_ref[:, views[0]:views[1]]
 
-        # inference-only q/k/v projection fusion, once per call
-        params = dict(params, unet=fuse_attention_params(params["unet"]))
-        ref_features = None
-        if references is not None:
-            ref_features = self.build_ref_features(
-                references, choices, b, guider.num_copies,
-                shared_cams=shared_target_cams and cfg_group is None and view_group is None,
-                compact=mask_ref is None, rows=None if cfg_group is None else (lo, hi),
-                views=views)
+        with span("cd360.sample.prepare"):
+            # inference-only q/k/v projection fusion, once per call
+            params = dict(params, unet=fuse_attention_params(params["unet"]))
+            ref_features = None
+            if references is not None:
+                ref_features = self.build_ref_features(
+                    references, choices, b, guider.num_copies,
+                    shared_cams=shared_target_cams and cfg_group is None and view_group is None,
+                    compact=mask_ref is None, rows=None if cfg_group is None else (lo, hi),
+                    views=views)
 
         def local_rows(xb, sb, cb):
             """This rank's guider rows: the target rows lo..hi-1 and, with
@@ -383,20 +387,21 @@ class Engine:
 
         if cache_nerf and (ref_features or input_ref is not None):
             s0 = torch.full((b,), float(sigmas[0]), dtype=torch.float32, device=self.device)
-            with view_sharded(view_group):
-                denoised, rendered = make_denoise(None, True)(x, s0)
+            euler = name == "euler_edm"
+            with span("cd360.sample.render"):
+                with view_sharded(view_group):
+                    denoised, rendered = make_denoise(None, True)(x, s0)
+                if euler:  # Euler's step 0 is the render pass's own evaluation
+                    x = x + (sigmas[1] - sigmas[0]) * to_d(x, s0, denoised)
+            del denoised
             denoise_rest = make_denoise(rendered or None, False)
-            if name == "euler_edm":
-                # Euler's step 0 is the render pass's own evaluation
-                x = x + (sigmas[1] - sigmas[0]) * to_d(x, s0, denoised)
-                del denoised
+            if euler:
                 if callback is not None:
                     callback(0)
                 step_cb = None if callback is None else (lambda i: callback(i + 1))
                 return euler_edm_sample(denoise_rest, x, sigmas[1:], cfg.sampler,
                                         noise=noise_rows(n_steps - 1), scale_init=False,
                                         callback=step_cb)
-            del denoised
             return sampler_fn(denoise_rest, x, sigmas, cfg.sampler, noise=noise_rows(n_steps),
                               scale_init=False, callback=callback)
         with view_sharded(view_group):  # every step renders

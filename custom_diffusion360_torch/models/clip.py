@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..utils.trace import spanned
 from .nn import Init, layer_norm, layer_norm_init, linear, linear_init, torch_dtype
 
 
@@ -127,12 +128,14 @@ def _block_apply(p, x, mask, act, cfg: ClipTextConfig):
     return x + linear(p["fc2"], act(linear(p["fc1"], y)))
 
 
+@spanned("cd360.clip")
 def clip_text_apply(params, tokens, cfg: ClipTextConfig):
     """tokens: (B, T) int; ids >= vocab_size index ``modifier_rows``
     (ids beyond the table clamp, as JAX's take(mode="clip")).
 
     Returns dict: last, penultimate, final (= ln_final(last)), each
-    (B, T, D) in the embedding dtype, and pooled (B, D) or None.
+    (B, T, D) in the embedding dtype, and pooled (B, D) or None. Under a
+    profiler, the call runs inside the span ``cd360.clip``.
     """
     table = params["token_embedding"]
     table = torch.cat([table, params["modifier_rows"].to(table.dtype)], dim=0)

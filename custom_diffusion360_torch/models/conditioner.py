@@ -11,7 +11,8 @@ Batch layout: the B target rows, then the B * n reference rows
 data/tokenizer.py on the host. ``force_zero_txt`` zeroes the text
 contributions (crossattn and the pooled part of vector), as sgm's
 force_uc_zero_embeddings=["txt"]; ``ref=False`` returns the target rows
-only, as at inference.
+only, as at inference. Under a profiler the outermost conditioner call
+runs inside the span ``cd360.conditioner``.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.trace import spanned
 from .clip import (
     CLIP_L_CONFIG,
     OPEN_CLIP_BIGG_CONFIG,
@@ -64,12 +66,17 @@ def _embed_rows(params, tokens_clip, tokens_open, sizes, cfg, force_zero_txt=Fal
     return crossattn, torch.cat([pooled] + size_embs, dim=-1)
 
 
+@spanned("cd360.conditioner")
 def apply_conditioner(params, batch: dict, cfg: ConditionerConfig = ConditionerConfig(), *,
                       force_zero_txt: bool = False, ref: bool = True):
     """batch keys: tokens_clip, tokens_open (B, T); original_size,
     crop_coords, target_size (B, 2); with ``ref`` also the ``_ref``
     variants ((B * n, ...)). Returns {"crossattn": ((1 + n) B, T, 2048),
     "vector": ((1 + n) B, 2816)}, the target rows first."""
+    return _conditioner(params, batch, cfg, force_zero_txt, ref)
+
+
+def _conditioner(params, batch, cfg, force_zero_txt, ref):
     sizes = [batch["original_size"], batch["crop_coords"], batch["target_size"]]
     ca, vec = _embed_rows(params, batch["tokens_clip"], batch["tokens_open"], sizes, cfg,
                           force_zero_txt)
@@ -82,13 +89,14 @@ def apply_conditioner(params, batch: dict, cfg: ConditionerConfig = ConditionerC
     return {"crossattn": torch.cat([ca, ca_r], dim=0), "vector": torch.cat([vec, vec_r], dim=0)}
 
 
+@spanned("cd360.conditioner")
 def get_unconditional_conditioning(params, batch_c: dict, batch_uc: Optional[dict] = None,
                                    cfg: ConditionerConfig = ConditionerConfig(), *,
                                    force_uc_zero_txt: bool = True, ref: bool = False):
     """(c, uc): the conditioner on ``batch_c``, and on ``batch_uc`` (or
     ``batch_c`` again) with the text zeroed when ``force_uc_zero_txt``.
     ``ref=False`` is inference: target rows only."""
-    c = apply_conditioner(params, batch_c, cfg, ref=ref)
-    uc = apply_conditioner(params, batch_uc if batch_uc is not None else batch_c, cfg,
-                           force_zero_txt=force_uc_zero_txt, ref=ref)
+    c = _conditioner(params, batch_c, cfg, False, ref)
+    uc = _conditioner(params, batch_uc if batch_uc is not None else batch_c, cfg,
+                      force_uc_zero_txt, ref)
     return c, uc

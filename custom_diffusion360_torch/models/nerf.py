@@ -44,6 +44,7 @@ from ..geometry.rays import (
 from ..ops.image_resize import resize_images
 from ..ops.onehot_sample import bilinear_sample
 from ..ops.sample_pdf import sample_pdf
+from ..utils.trace import span
 from .nn import Init, linear, linear_init, nearest_resize_tokens, silu, torch_dtype
 
 # the process group of the view-sharded render running inside
@@ -531,8 +532,9 @@ def nerfsd_apply(params, cams: Cameras, xref, cfg: NerfConfig, prev_weights=None
     geo_ray, logit_ray = ray_shared_terms(params, cams, march["rays"], cfg)
 
     def run(points, gr, lr, sigma_only):
-        return nerf_encoding_split(params, cams, proj, gr, lr, points, cfg,
-                                   sigma_only=sigma_only)[0].float()
+        with span("cd360.nerf"):  # the f32 island; under checkpoint, its recompute too
+            return nerf_encoding_split(params, cams, proj, gr, lr, points, cfg,
+                                       sigma_only=sigma_only)[0].float()
 
     def encode(points, sigma_only=False):
         hw = points.shape[1]

@@ -9,7 +9,8 @@ live reference stream: the reference latents (``input_ref``) run the same
 frozen weights in lockstep under ``torch.no_grad`` with their own timestep
 embedding (the JAX package's stop-gradient ``_Stream.both``). Under the x3
 guider the cached steps run the layers before the first attention on the
-unique CFG copies only (``prefix_dedupe``).
+unique CFG copies only (``prefix_dedupe``). Under a profiler each layer
+runs inside a span named by its kind (``LAYER_SPANS``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Tuple
 import torch
 
 from .. import resolve_device
+from ..utils.trace import span
 from .nerf import NerfConfig
 from .nn import (
     Init,
@@ -39,6 +41,9 @@ from .transformer import (
     init_spatial_transformer,
     spatial_transformer_apply,
 )
+
+# the span of each kind of layer of the spec (utils/trace.py)
+LAYER_SPANS = {kind: f"cd360.unet.{kind}" for kind in ("conv_in", "res", "down", "up", "attn")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,6 +330,10 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
         return h, hr
 
     def apply_layer(lp, spec, h, hr):
+        with span(LAYER_SPANS[spec[0]]):
+            return layer(lp, spec, h, hr)
+
+    def layer(lp, spec, h, hr):
         kind = spec[0]
         if kind == "conv_in":
             return both(lambda t, _: conv2d(lp, t), h, hr)

@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.trace import span
 from . import _build
 
 KERNEL_HEAD_DIMS = (64, 512)  # csrc/attention_sm90.cu, csrc/attention512_sm90.cu
@@ -227,44 +228,43 @@ def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None):
     CUDA tensors launch ``csrc/attention_sm90.cu`` (d = 64) or
     ``csrc/attention512_sm90.cu`` (d = 512), bf16; the result is a (b, h, n, d) view
     of (b, n, h, d) storage, so callers in the models' (b, n, h, d) layout
-    transpose back for free. CPU tensors run ``attention_plain``. Launches
-    are counted in ``attention_fwd.launches``, and by shape and q's layout
-    (b, h, n, m, d, kv_len, ``layout_of(q)``) in
+    transpose back for free, inside the span ``cd360.op.attention``. CPU
+    tensors run ``attention_plain``. Launches are counted by shape and q's
+    layout (b, h, n, m, d, kv_len, ``layout_of(q)``) in
     ``attention_fwd.launches_by_shape``.
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, kv_len)
-    out = _launch(q, k, v, scale, kv_len)
+    with span("cd360.op.attention"):
+        out = _launch(q, k, v, scale, kv_len)
     b, h, n, d = q.shape
     m = k.shape[2]
-    attention_fwd.launches += 1
     attention_fwd.launches_by_shape[
         (b, h, n, m, d, m if kv_len is None else int(kv_len), layout_of(q))] += 1
     return out
 
 
-attention_fwd.launches = 0
 attention_fwd.launches_by_shape = Counter()
 
 
 def attention_bnhd_fwd(q, k, v, scale: float, kv_len: Optional[int] = None):
     """Non-causal attention on the (b, n, h, d) layout: q (b, n, h, d), k, v
     (b, m, h, d) -> contiguous (b, n, h, d). CUDA: the attention kernel on
-    the (b, h, *, d) views, no transpose copies; launches counted in
-    ``attention_bnhd_fwd.launches`` and by shape (b, n, h, m, d, kv_len).
-    CPU: ``attention_plain`` on the transposed views."""
+    the (b, h, *, d) views, no transpose copies, inside the span
+    ``cd360.op.attention``; launches counted by shape (b, n, h, m, d,
+    kv_len) in ``attention_bnhd_fwd.launches_by_shape``. CPU:
+    ``attention_plain`` on the transposed views."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cpu":
         return attention_plain(qt, kt, vt, scale, kv_len).transpose(1, 2)
-    out = _launch(qt, kt, vt, scale, kv_len).transpose(1, 2)
+    with span("cd360.op.attention"):
+        out = _launch(qt, kt, vt, scale, kv_len).transpose(1, 2)
     b, n, h, d = q.shape
     m = k.shape[1]
-    attention_bnhd_fwd.launches += 1
     attention_bnhd_fwd.launches_by_shape[(b, n, h, m, d, m if kv_len is None else int(kv_len))] += 1
     return out
 
 
-attention_bnhd_fwd.launches = 0
 attention_bnhd_fwd.launches_by_shape = Counter()
 
 

@@ -27,6 +27,7 @@ from collections import Counter
 import torch
 import torch.nn.functional as F
 
+from ..utils.trace import span
 from . import _build
 
 TH = TW = 32  # the JAX gate's tile: H and W multiples of 32
@@ -138,8 +139,8 @@ _kernel = None  # the loaded ctypes entry point, kept off the per-call path
 
 def conv3x3_fwd(x, w, bias=None):
     """Forward of :func:`conv3x3_gemm`. CUDA: the kernel (bf16, the shapes
-    ``conv3x3_supported`` passes); launches counted in
-    ``conv3x3_fwd.launches`` and by shape (B, H, W, C, N) in
+    ``conv3x3_supported`` passes) inside the span ``cd360.op.conv3x3``;
+    launches counted by shape (B, H, W, C, N) in
     ``conv3x3_fwd.launches_by_shape``. CPU: the plain version + bias."""
     global _kernel
     if x.device.type == "cpu":
@@ -153,28 +154,28 @@ def conv3x3_fwd(x, w, bias=None):
         raise ValueError("conv3x3 kernel needs x, w and bias on one CUDA device")
     b, h, wd, c = x.shape
     n = w.shape[0]
-    x = x.contiguous()
-    w9 = relaid_weight(w, x.dtype)
-    # held in a local until the launch is queued (no freed temporary)
-    bias_k = None if bias is None else bias.to(x.dtype).contiguous()
-    if bias_k is not None and (bias_k.shape != (n,) or bias_k.data_ptr() % 4):
-        raise ValueError(f"conv3x3 kernel needs a 4-byte aligned bias of shape ({n},)")
-    if x.data_ptr() % 16:
-        raise ValueError("conv3x3 kernel needs a 16-byte aligned input")
-    out = torch.empty((b, h, wd, n), dtype=x.dtype, device=x.device)
-    maps = _map_array(b, h, wd, c, n)
     if _kernel is None:
         _kernel = _build.load("conv3x3")
-    with _build.on_device(index):
-        rc = _kernel(x.data_ptr(), w9.data_ptr(), None if bias_k is None else bias_k.data_ptr(),
-                     out.data_ptr(), maps, _build.current_stream(index))
+    with span("cd360.op.conv3x3"):
+        x = x.contiguous()
+        w9 = relaid_weight(w, x.dtype)
+        # held in a local until the launch is queued (no freed temporary)
+        bias_k = None if bias is None else bias.to(x.dtype).contiguous()
+        if bias_k is not None and (bias_k.shape != (n,) or bias_k.data_ptr() % 4):
+            raise ValueError(f"conv3x3 kernel needs a 4-byte aligned bias of shape ({n},)")
+        if x.data_ptr() % 16:
+            raise ValueError("conv3x3 kernel needs a 16-byte aligned input")
+        out = torch.empty((b, h, wd, n), dtype=x.dtype, device=x.device)
+        maps = _map_array(b, h, wd, c, n)
+        with _build.on_device(index):
+            rc = _kernel(x.data_ptr(), w9.data_ptr(),
+                         None if bias_k is None else bias_k.data_ptr(), out.data_ptr(), maps,
+                         _build.current_stream(index))
     _build.check(rc, "conv3x3_fwd")
-    conv3x3_fwd.launches += 1
     conv3x3_fwd.launches_by_shape[(b, h, wd, c, n)] += 1
     return out
 
 
-conv3x3_fwd.launches = 0
 conv3x3_fwd.launches_by_shape = Counter()
 
 

@@ -17,8 +17,9 @@ input that requires grad), since they run hundreds of times a UNet step and
 the host's time per launch is the step's time. Both kernels read bf16 or
 f32 scale and bias as they are (no copies); the GroupNorm kernel makes two
 launches a call with one scratch tensor for its per-chunk statistics.
-Launches are counted on ``layer_norm_fused`` / ``group_norm_fused``
-(``launches`` and ``launches_by_shape``).
+Launches are counted by shape on ``layer_norm_fused`` / ``group_norm_fused``
+(``launches_by_shape``); the card's launches run inside the spans
+``cd360.op.layer_norm`` / ``cd360.op.group_norm``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils.trace import span
 from . import _build
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -93,16 +95,15 @@ def _ln_forward(x, scale, bias, eps):
     _check_params(x, scale, bias, "layer_norm")
     c = x.shape[-1]
     rows = x.numel() // c
-    y = torch.empty_like(x)
     if _ln_kernel is None:
         _ln_kernel = _build.load("layer_norm")
     index = x.get_device()
-    with _build.on_device(index):
+    with span("cd360.op.layer_norm"), _build.on_device(index):
+        y = torch.empty_like(x)
         rc = _ln_kernel(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, c,
                         float(eps), _DTYPES[x.dtype], _DTYPES[scale.dtype],
                         _build.current_stream(index))
     _build.check(rc, "layer_norm_fused")
-    layer_norm_fused.launches += 1
     layer_norm_fused.launches_by_shape[
         (rows, c, _DTYPE_NAMES[x.dtype], _DTYPE_NAMES[scale.dtype])] += 1
     return y
@@ -141,18 +142,17 @@ def _gn_forward(x, scale, bias, num_groups, eps, act):
         raise ValueError(f"group_norm kernel fuses act None or 'silu', got {act!r}")
     hw = x.numel() // (n * c)
     chunks = gn_chunks(n, hw, c, x.element_size(), num_groups)
-    y = torch.empty_like(x)
-    partial = torch.empty((n, chunks, num_groups, 2), dtype=torch.float32, device=x.device)
     if _gn_kernel is None:
         _gn_kernel = _build.load("group_norm")
     index = x.get_device()
-    with _build.on_device(index):
+    with span("cd360.op.group_norm"), _build.on_device(index):
+        y = torch.empty_like(x)
+        partial = torch.empty((n, chunks, num_groups, 2), dtype=torch.float32, device=x.device)
         rc = _gn_kernel(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
                         partial.data_ptr(), n, hw, c, num_groups, chunks, float(eps),
                         int(act == "silu"), _DTYPES[x.dtype], _DTYPES[scale.dtype],
                         _build.current_stream(index))
     _build.check(rc, "group_norm_fused")
-    group_norm_fused.launches += 1
     group_norm_fused.launches_by_shape[
         (n, hw, c, num_groups, act or "none", _DTYPE_NAMES[x.dtype])] += 1
     return y
@@ -233,7 +233,5 @@ def group_norm_fused(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,
     return _gn_forward(x, scale, bias, num_groups, eps, act)
 
 
-layer_norm_fused.launches = 0
 layer_norm_fused.launches_by_shape = Counter()
-group_norm_fused.launches = 0
 group_norm_fused.launches_by_shape = Counter()

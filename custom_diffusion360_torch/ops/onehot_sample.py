@@ -18,6 +18,7 @@ from collections import Counter
 
 import torch
 
+from ..utils.trace import span
 from . import _build
 from .grid_sample import grid_sample_2d
 
@@ -38,8 +39,8 @@ def _vec(c, t):
 
 
 def _sample_forward(feats, grid):
-    """The forward launch: CUDA tensors launch the kernel, CPU tensors run
-    ``grid_sample_2d``."""
+    """The forward launch: CUDA tensors launch the kernel inside the span
+    ``cd360.op.bilinear``, CPU tensors run ``grid_sample_2d``."""
     if feats.device.type == "cpu":
         return grid_sample_2d(feats, grid)
     m, h, w, c = feats.shape
@@ -48,16 +49,16 @@ def _sample_forward(feats, grid):
         raise TypeError(f"bilinear kernel takes bf16 or f32 maps, got {feats.dtype}")
     if not feats.is_contiguous():
         raise ValueError("bilinear kernel needs contiguous maps")
-    grid = grid.to(torch.float32).contiguous()
-    p = grid.shape[1]
-    out = torch.empty((m, p, c), dtype=feats.dtype, device=feats.device)
-    fn = _build.load("bilinear_sample")
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream(feats.device).cuda_stream
-        rc = fn(feats.data_ptr(), grid.data_ptr(), out.data_ptr(), m, h, w, c,
-                p, _DTYPES[feats.dtype], _vec(c, feats), stream)
+    with span("cd360.op.bilinear"):
+        grid = grid.to(torch.float32).contiguous()
+        p = grid.shape[1]
+        out = torch.empty((m, p, c), dtype=feats.dtype, device=feats.device)
+        fn = _build.load("bilinear_sample")
+        with torch.cuda.device(feats.device):
+            stream = torch.cuda.current_stream(feats.device).cuda_stream
+            rc = fn(feats.data_ptr(), grid.data_ptr(), out.data_ptr(), m, h, w, c,
+                    p, _DTYPES[feats.dtype], _vec(c, feats), stream)
     _build.check(rc, "bilinear_sample")
-    bilinear_sample.launches += 1
     bilinear_sample.launches_by_shape[(m, h, w, c, p, _DTYPE_NAMES[feats.dtype])] += 1
     return out
 
@@ -161,9 +162,11 @@ def bilinear_sample_bwd(g, grid, feats_shape, dtype):
     in shared memory, no atomics, the same bits from run to run; the kernel
     writes ``dtype`` itself (no zero fill, no cast), and when ``bwd_plan``
     splits the points, an f32 workspace and a merge launch sum the splits in
-    order. CPU tensors run ``bilinear_sample_bwd_plain``. Launches are
-    counted in ``bilinear_sample_bwd.launches`` and by shape (M, H, W, C, P,
-    dtype); the last plan at each shape is in ``bwd_plans_launched``."""
+    order; all inside the span ``cd360.op.bilinear_bwd`` (on autograd's
+    device thread when autograd calls it). CPU tensors run
+    ``bilinear_sample_bwd_plain``. Launches are counted by shape (M, H, W,
+    C, P, dtype) in ``bilinear_sample_bwd.launches_by_shape``; the last plan
+    at each shape is in ``bwd_plans_launched``."""
     if g.device.type == "cpu":
         return bilinear_sample_bwd_plain(g, grid, feats_shape, dtype)
     m, h, w, c = feats_shape
@@ -172,14 +175,15 @@ def bilinear_sample_bwd(g, grid, feats_shape, dtype):
         raise TypeError(f"bilinear backward kernel takes bf16 or f32, got {g.dtype} -> {dtype}")
     if tuple(g.shape) != (m, grid.shape[1], c):
         raise ValueError(f"cotangent {tuple(g.shape)} does not match maps {tuple(feats_shape)}")
-    g = g.contiguous()
-    grid = grid.to(torch.float32).contiguous()
-    if grid.data_ptr() % 8:  # the kernel reads (x, y) pairs as float2
-        grid = grid.clone()
-    p = grid.shape[1]
-    band_pix, splits = bwd_plan(m, h, w, c, p, g.element_size(), _build.num_sms(g.get_device()))
-    out = bwd_launch(g, grid, feats_shape, dtype, band_pix, splits)
-    bilinear_sample_bwd.launches += 1
+    with span("cd360.op.bilinear_bwd"):
+        g = g.contiguous()
+        grid = grid.to(torch.float32).contiguous()
+        if grid.data_ptr() % 8:  # the kernel reads (x, y) pairs as float2
+            grid = grid.clone()
+        p = grid.shape[1]
+        band_pix, splits = bwd_plan(m, h, w, c, p, g.element_size(),
+                                    _build.num_sms(g.get_device()))
+        out = bwd_launch(g, grid, feats_shape, dtype, band_pix, splits)
     bilinear_sample_bwd.launches_by_shape[(m, h, w, c, p, _DTYPE_NAMES[g.dtype])] += 1
     bwd_plans_launched[(m, h, w, c, p, _DTYPE_NAMES[g.dtype])] = (band_pix, splits)
     return out
@@ -237,14 +241,11 @@ def bilinear_sample(feats, grid):
     Channel rows take 16-byte vector loads when C * itemsize is a multiple
     of 16, and scalar loads otherwise: the FeatureNeRF caller pads its odd
     C + 1 channel maps to a multiple of 8 (models/nerf.project_ref_maps), so
-    the main path takes the vector path. Launches are counted in
-    ``bilinear_sample.launches``, and by shape (M, H, W, C, P, dtype) in
-    ``bilinear_sample.launches_by_shape``.
+    the main path takes the vector path. Launches are counted by shape (M,
+    H, W, C, P, dtype) in ``bilinear_sample.launches_by_shape``.
     """
     return _BilinearSample.apply(feats, grid)
 
 
-bilinear_sample.launches = 0
 bilinear_sample.launches_by_shape = Counter()
-bilinear_sample_bwd.launches = 0
 bilinear_sample_bwd.launches_by_shape = Counter()

@@ -22,6 +22,11 @@ without the second decode, detached as under JAX's stop_gradient.
 
 The posterior's standard-normal draws are the draw "vae_eps" of a
 ``draws.Draws`` (the latent's shape).
+
+Under a profiler a step runs inside the span ``cd360.ae.step``: the
+autoencoder's loss in ``cd360.ae.forward``, its gradients in
+``cd360.ae.backward``, its Adam step in ``cd360.ae.update``, then the
+discriminator's whole sub-step in ``cd360.ae.disc``.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from ..models.lpips import init_lpips_params, lpips_apply
 from ..models.nn import Init
 from ..models.regularizers import diagonal_gaussian_regularizer
 from ..models.vae import VAEConfig, init_vae_params, vae_decode, vae_encode
+from ..utils.trace import span, spanned
 from .trainer import tree_leaves, tree_map
 
 
@@ -192,6 +198,7 @@ class AEEngine:
             step=0,
         )
 
+    @spanned("cd360.ae.step")
     def train_step(self, state: AEEngineState, x, draws):
         """Both optimizer sub-steps on the images x (B, H, W, 3) in [-1, 1],
         computed in x.dtype; the parameters are updated in place. Returns
@@ -200,16 +207,20 @@ class AEEngine:
         params = state.params
         x = x.to(self.device)
         ae_leaves = list(tree_leaves(params["ae"]))
-        loss, (xrec, logs) = ae_loss(params["ae"], params["disc"], params["lpips"], x, draws,
-                                     state.step, cfg)
-        _grads_into(loss, ae_leaves)
-        state.opt_ae.step()
-        state.opt_ae.zero_grad(set_to_none=True)
+        with span("cd360.ae.forward"):
+            loss, (xrec, logs) = ae_loss(params["ae"], params["disc"], params["lpips"], x, draws,
+                                         state.step, cfg)
+        with span("cd360.ae.backward"):
+            _grads_into(loss, ae_leaves)
+        with span("cd360.ae.update"):
+            state.opt_ae.step()
+            state.opt_ae.zero_grad(set_to_none=True)
 
-        d, logs_d = disc_loss(params["disc"], x, xrec, state.step, cfg)
-        _grads_into(d, list(tree_leaves(params["disc"])))
-        state.opt_disc.step()
-        state.opt_disc.zero_grad(set_to_none=True)
+        with span("cd360.ae.disc"):
+            d, logs_d = disc_loss(params["disc"], x, xrec, state.step, cfg)
+            _grads_into(d, list(tree_leaves(params["disc"])))
+            state.opt_disc.step()
+            state.opt_disc.zero_grad(set_to_none=True)
         logs.update(logs_d)
         return (dataclasses.replace(state, step=state.step + 1),
                 {k: v.detach() for k, v in logs.items()})

@@ -37,6 +37,11 @@ number of rows (the fg / bg / rgb terms are divided by the mean of the
 ranks' counts of items that kept their references, ``Engine.training_loss
 (data_group=)``). The loss terms in the metrics are averaged over the ranks
 too. Every rank must call ``train_step`` the same number of times.
+
+Under a profiler a step runs inside the span ``cd360.train.step``, its
+phases inside ``cd360.train.forward`` (the loss), ``cd360.train.backward``
+and ``cd360.train.update`` (the all-reduce, norms, accumulation, clipping
+and ``optimizer.step()``).
 """
 from __future__ import annotations
 
@@ -44,6 +49,8 @@ import dataclasses
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+
+from ..utils.trace import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,17 +170,27 @@ class Trainer:
         return [leaf for lab, leaf in zip(tree_leaves(self.labels), tree_leaves(state.params))
                 if lab != "frozen"]
 
+    @spanned("cd360.train.step")
     def train_step(self, state: TrainState, batch, draws):
         """Forward, backward and, on an update call, one AdamW update of the
         trainable leaves (in place). Returns (the next state, metrics): the
         loss terms and ``grad_norm``, the global L2 norm of this call's
         trainable gradients, as detached tensors."""
-        cfg = self.cfg
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        loss, metrics = self.engine.training_loss(state.params, batch, state.step, draws,
-                                                  data_group=self.data_group)
-        loss.backward()
+        with span("cd360.train.forward"):
+            loss, metrics = self.engine.training_loss(state.params, batch, state.step, draws,
+                                                      data_group=self.data_group)
+        with span("cd360.train.backward"):
+            loss.backward()
+        with span("cd360.train.update"):
+            return self._update(state, metrics)
+
+    def _update(self, state: TrainState, metrics):
+        """After the backward: the gradients' mean over ``data_group``,
+        ``grad_norm``, the accumulation, the clipping and the AdamW update."""
+        cfg = self.cfg
+        opt = state.optimizer
         leaves = self.trainable(state)
         for leaf in leaves:
             if leaf.grad is None:

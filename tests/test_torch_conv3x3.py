@@ -197,7 +197,6 @@ def stand_in_kernel(monkeypatch):
     monkeypatch.setattr(tconv._build, "on_device", lambda index: contextlib.nullcontext())
     monkeypatch.setattr(tconv._build, "current_stream", lambda index: 7)
     monkeypatch.setattr(tconv, "_kernel", None)
-    monkeypatch.setattr(tconv.conv3x3_fwd, "launches", 0)
     monkeypatch.setattr(tconv.conv3x3_fwd, "launches_by_shape", Counter())
     return calls
 

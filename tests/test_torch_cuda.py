@@ -77,6 +77,11 @@ def _randn(gen, *shape, dtype=torch.bfloat16):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def launched(wrapper):
+    """The launches an op wrapper has counted, over all its shapes."""
+    return sum(wrapper.launches_by_shape.values())
+
+
 # d = 64 (csrc/attention_sm90.cu): every (n, m) of these lengths, with all
 # keys and with a kv_len that ends inside a 128-key tile; ragged q tiles
 # (200), m below one tile (64), and the UNet's 1024 / 4096
@@ -97,10 +102,10 @@ _ATTN_CASES = [
 @pytest.mark.parametrize("b,h,n,m,d,kv_len", _ATTN_CASES)
 def test_attention_kernel_matches_plain(gen, b, h, n, m, d, kv_len):
     q, k, v = _randn(gen, b, h, n, d), _randn(gen, b, h, m, d), _randn(gen, b, h, m, d)
-    before = attention_fwd.launches
+    before = launched(attention_fwd)
     got = block_attention(q, k, v, d**-0.5, kv_len)
     torch.cuda.synchronize()
-    assert attention_fwd.launches == before + 1
+    assert launched(attention_fwd) == before + 1
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert splits_launched[(b, h, n, m, d)] == (split_count(b * h, n, m, sms) if d == 512 else 1)
     ref = attention_plain(q.float(), k.float(), v.float(), d**-0.5, kv_len)
@@ -134,10 +139,10 @@ def test_bilinear_kernel_matches_plain(gen, c, dtype):
     grid = torch.rand((4, 1000, 2), generator=gen, device="cuda") * 2.4 - 1.2
     grid[:, :4] = torch.tensor([[1.0, 1.0], [-1.0, -1.0], [1.2, 0.0], [1.0, -1.0]],
                                device="cuda")
-    before = bilinear_sample.launches
+    before = launched(bilinear_sample)
     got = bilinear_sample(feats, grid)
     torch.cuda.synchronize()
-    assert bilinear_sample.launches == before + 1
+    assert launched(bilinear_sample) == before + 1
     ref = grid_sample_2d(feats.float(), grid)
     tol = 1e-2 * max(1.0, float(ref.abs().max())) if dtype == torch.bfloat16 else 1e-5
     assert float((got.float() - ref).abs().max()) < tol
@@ -157,10 +162,10 @@ def test_layer_norm_kernel_matches_plain(gen, rows, c, dtype, param_dtype):
     x = (_randn(gen, rows, c, dtype=torch.float32) * 3 + 1).to(dtype)
     s = (_randn(gen, c, dtype=torch.float32) * 0.1 + 1).to(param_dtype)
     b = _randn(gen, c, dtype=param_dtype)
-    before = layer_norm_fused.launches
+    before = launched(layer_norm_fused)
     got = layer_norm_fused(x, s, b)
     torch.cuda.synchronize()
-    assert layer_norm_fused.launches == before + 1 and got.dtype == dtype
+    assert launched(layer_norm_fused) == before + 1 and got.dtype == dtype
     ref = _ln_plain(x.float(), s, b, 1e-5)
     assert float((got.float() - ref).abs().max()) < _norm_tol(dtype) * float(ref.abs().max())
 
@@ -194,10 +199,10 @@ def test_group_norm_kernel_matches_plain(gen, n, hw, c, groups, act, dtype, para
     x = (_randn(gen, n, hw, c, dtype=torch.float32) * 0.5 + 20.0).to(dtype)
     s = (_randn(gen, c, dtype=torch.float32) * 0.1 + 1).to(param_dtype)
     b = _randn(gen, c, dtype=param_dtype)
-    before = group_norm_fused.launches
+    before = launched(group_norm_fused)
     got = group_norm_fused(x, s, b, groups, 1e-6, act)
     torch.cuda.synchronize()
-    assert group_norm_fused.launches == before + 1 and got.dtype == dtype
+    assert launched(group_norm_fused) == before + 1 and got.dtype == dtype
     ref = _gn_plain(x.float(), s, b, groups, 1e-6, act)
     assert float((got.float() - ref).abs().max()) < _norm_tol(dtype) * float(ref.abs().max())
 
@@ -244,10 +249,10 @@ def test_bilinear_backward_kernel_matches_plain(gen, m, side, c, p, dtype):
     grid = torch.rand((m, p, 2), generator=gen, device="cuda") * 2.4 - 1.2
     grid[:, :4] = torch.tensor([[1.0, 1.0], [-1.0, -1.0], [1.2, 0.0], [1.0, -1.0]],
                                device="cuda")
-    before = bilinear_sample_bwd.launches
+    before = launched(bilinear_sample_bwd)
     got = bilinear_sample_bwd(g, grid, (m, side, side, c), dtype)
     torch.cuda.synchronize()
-    assert bilinear_sample_bwd.launches == before + 1 and got.dtype == dtype
+    assert launched(bilinear_sample_bwd) == before + 1 and got.dtype == dtype
     ref = bilinear_sample_bwd_plain(g.float(), grid, (m, side, side, c), torch.float32)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     assert float((got.float() - ref).abs().max()) < tol * float(ref.abs().max())
@@ -255,10 +260,10 @@ def test_bilinear_backward_kernel_matches_plain(gen, m, side, c, p, dtype):
 
 def _bwd_check(g, grid, shape, dtype):
     """One launch of the backward kernel against the f32 plain version."""
-    before = bilinear_sample_bwd.launches
+    before = launched(bilinear_sample_bwd)
     got = bilinear_sample_bwd(g, grid, shape, dtype)
     torch.cuda.synchronize()
-    assert bilinear_sample_bwd.launches == before + 1 and got.dtype == dtype
+    assert launched(bilinear_sample_bwd) == before + 1 and got.dtype == dtype
     ref = bilinear_sample_bwd_plain(g.float(), grid, shape, torch.float32)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     assert float((got.float() - ref).abs().max()) <= tol * float(ref.abs().max())
@@ -344,7 +349,7 @@ def test_gradients_reach_inputs_through_the_kernels(gen):
     x = _randn(gen, 2, 64, 64).requires_grad_(True)
     s = torch.ones(64, device="cuda", requires_grad=True)
     b = torch.zeros(64, device="cuda", requires_grad=True)
-    before = bilinear_sample_bwd.launches
+    before = launched(bilinear_sample_bwd)
     loss = (block_attention(q, q * 0.5, q * 2.0, 0.125).float().square().sum()
             + block_attention_qkv_fused(qkv, 0.125).float().square().sum()
             + bilinear_sample(feats, grid).square().sum()
@@ -352,7 +357,7 @@ def test_gradients_reach_inputs_through_the_kernels(gen):
             + group_norm_fused(x, s, b, 32, 1e-6, "silu").float().pow(3).sum())
     loss.backward()
     torch.cuda.synchronize()
-    assert bilinear_sample_bwd.launches == before + 1
+    assert launched(bilinear_sample_bwd) == before + 1
     for leaf in (q, qkv, feats, x, s, b):
         assert leaf.grad is not None and float(leaf.grad.float().abs().max()) > 0
     assert float(grid.grad.abs().max()) == 0.0
@@ -364,10 +369,10 @@ def test_gradients_reach_inputs_through_the_kernels(gen):
 def test_bnhd_kernel_matches_plain(gen, n, m, h, kv_len):
     d = 512 if h == 1 else 64
     q, k, v = _randn(gen, 2, n, h, d), _randn(gen, 2, m, h, d), _randn(gen, 2, m, h, d)
-    before, before_attn = attention_bnhd_fwd.launches, attention_fwd.launches
+    before, before_attn = launched(attention_bnhd_fwd), launched(attention_fwd)
     got = block_attention_bnhd(q, k, v, d**-0.5, kv_len)
     torch.cuda.synchronize()
-    assert attention_bnhd_fwd.launches == before + 1 and attention_fwd.launches == before_attn
+    assert launched(attention_bnhd_fwd) == before + 1 and launched(attention_fwd) == before_attn
     assert got.shape == (2, n, h, d) and got.is_contiguous()
     ref = attention_plain(q.float().transpose(1, 2), k.float().transpose(1, 2),
                           v.float().transpose(1, 2), d**-0.5, kv_len).transpose(1, 2)
@@ -405,10 +410,10 @@ def test_conv3x3_kernel_matches_plain(gen, b, h, w, c, n, bias):
     x = _randn(gen, b, h, w, c)
     wt = (_randn(gen, n, c, 3, 3, dtype=torch.float32) * (9 * c) ** -0.5).to(torch.bfloat16)
     bb = _randn(gen, n) if bias else None
-    before = conv3x3_fwd.launches
+    before = launched(conv3x3_fwd)
     got = conv3x3_gemm(x, wt, bb)
     torch.cuda.synchronize()
-    assert conv3x3_fwd.launches == before + 1 and got.shape == (b, h, w, n)
+    assert launched(conv3x3_fwd) == before + 1 and got.shape == (b, h, w, n)
     ref = conv3x3_plain(x.float(), wt.float())
     if bias:
         ref = ref + bb.float()
@@ -580,7 +585,7 @@ def test_ae_train_step_in_bf16_launches_the_kernels(gen, monkeypatch):
     before = {side: [leaf.detach().clone() for leaf in tree_leaves(state.params[side])]
               for side in ("ae", "disc")}
     counters = (group_norm_fused, attention_fwd, conv3x3_fwd)
-    launches = [c.launches for c in counters]
+    launches = [launched(c) for c in counters]
     x = (torch.rand((2, 64, 64, 3), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
     state, logs = eng.train_step(state, x, Draws(torch.Generator(device="cuda").manual_seed(1)))
     torch.cuda.synchronize()
@@ -589,7 +594,7 @@ def test_ae_train_step_in_bf16_launches_the_kernels(gen, monkeypatch):
         moved = sum(float((leaf.detach() - o).abs().sum())
                     for leaf, o in zip(tree_leaves(state.params[side]), old))
         assert moved > 0, side
-    assert all(c.launches > n for c, n in zip(counters, launches))
+    assert all(launched(c) > n for c, n in zip(counters, launches))
     assert any(shape[4] == 512 for shape in attention_fwd.launches_by_shape)
 
 
