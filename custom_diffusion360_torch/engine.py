@@ -12,7 +12,9 @@ random draws come from a ``draws.Draws``.
 SAMPLERS) on the configured sigma schedule. It renders the FeatureNeRF pose
 blocks once, at step 0, and feeds the rendered features to the remaining
 steps as ``nerf_caches`` (exact at eval: the rays are deterministic), with
-the text cross-attention K/V hoisted out of the loop. The reference
+the text cross-attention K/V hoisted out of the loop; on the card those
+cached evaluations replay CUDA graphs (``models/unet_graphs.py``), which
+the Engine owns with their memory. The reference
 features come from delta-checkpoint buffers or from live reference latents
 (the path of ``log_images``). Randomness enters as the ``noise`` tensor and,
 for the samplers that draw every step, a ``draws.Draws``; ``cond``/``uc``
@@ -49,6 +51,7 @@ from .models.nerf import CompactRefTokens, view_sharded
 from .models.nn import torch_dtype
 from .models.transformer import fuse_attention_params
 from .models.unet import UNetConfig, init_unet_params, precompute_context_kv, unet_apply
+from .models.unet_graphs import CachedUNetGraphs
 from .models.vae import VAEConfig, decode_first_stage, encode_first_stage, init_vae_params
 from .utils.trace import span, spanned
 
@@ -76,6 +79,8 @@ class Engine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.denoiser = Denoiser(cfg.denoiser, device=self.device)
+        # the cached sampler steps' graphs and the fused q/k/v leaves they read
+        self.graphs = CachedUNetGraphs()
         # ascending training sigma grids of the target and the references
         self.sigmas_cubic = legacy_ddpm_sigmas(cfg.loss.num_idx, self.device,
                                                append_zero=False, flip=True)
@@ -319,8 +324,9 @@ class Engine:
             mask_ref = None if mask_ref is None else mask_ref[:, views[0]:views[1]]
 
         with span("cd360.sample.prepare"):
-            # inference-only q/k/v projection fusion, once per call
-            params = dict(params, unet=fuse_attention_params(params["unet"]))
+            # inference-only q/k/v projection fusion, once per call, into
+            # the leaves of the last call (their addresses stay)
+            params = dict(params, unet=self.graphs.fuse(params["unet"]))
             ref_features = None
             if references is not None:
                 ref_features = self.build_ref_features(
@@ -363,11 +369,21 @@ class Engine:
             if (nerf_caches is not None and cfg_group is None
                     and os.environ.get("CD360_PREFIX_DEDUPE", "1") != "0"):
                 prefix_dedupe = getattr(guider, "prefix_copy_groups", None)
-            network = self.network_fn(
-                params, cams, mask_ref, nerf_caches=nerf_caches,
-                ref_features=None if nerf_caches is not None else ref_features,
-                ctx_kv=ctx_kv, prefix_dedupe=prefix_dedupe,
-            )
+
+            def build(caches, kv):
+                return self.network_fn(
+                    params, cams, mask_ref, nerf_caches=caches,
+                    ref_features=None if caches is not None else ref_features,
+                    ctx_kv=kv, prefix_dedupe=prefix_dedupe,
+                )
+
+            if nerf_caches is None:
+                network = build(None, ctx_kv)
+            else:  # replayed as CUDA graphs where models.unet_graphs.engages
+                network = self.graphs.network(
+                    build, params["unet"], nerf_caches, ctx_kv,
+                    group=cfg_group if cfg_group is not None else view_group,
+                    settings=(prefix_dedupe,))
             live = {}
             if nerf_caches is None and input_ref is not None:
                 live = dict(input_ref=input_ref, sigmas_ref=sigmas_ref)

@@ -178,12 +178,34 @@ def cross_attention_apply(p, x, context=None, *, n_heads: int, kv=None,
     return final
 
 
-def fuse_attention_params(params):
+def _cat_into(buffers: dict, path, parts):
+    """torch.cat(parts, dim=1), written into ``buffers[path]`` where that
+    holds a tensor of the result's shape, dtype and device, else made anew
+    and kept there."""
+    shape = (parts[0].shape[0], sum(p.shape[1] for p in parts))
+    buf = buffers.get(path)
+    if (buf is not None and tuple(buf.shape) == shape and buf.dtype == parts[0].dtype
+            and buf.device == parts[0].device):
+        return torch.cat(parts, dim=1, out=buf)
+    buffers[path] = out = torch.cat(parts, dim=1)
+    return out
+
+
+def fuse_attention_params(params, buffers: Optional[dict] = None):
     """Params tree with q/k/v projections fused for inference: every
     transformer block's attn1 gets ``to_qkv`` = [wq | wk | wv] and attn2
     ``to_kv`` = [wk | wv]; LoRA adapters are merged first (W + down @ up).
-    Returns a new tree; the input is not modified."""
-    def merge_lora(attn):
+    Returns a new tree; the input is not modified.
+
+    ``buffers``: a dict {path: tensor} of the leaves that an earlier call
+    made. Each made leaf is written into its buffer where shape, dtype and
+    device match, else made anew and kept there: so the fused weights keep
+    their addresses from call to call (the cached UNet's CUDA graphs read
+    them there, ``models/unet_graphs.py``) while carrying the values the
+    source leaves hold now."""
+    buffers = {} if buffers is None else buffers
+
+    def merge_lora(attn, path):
         if "lora" not in attn:
             return attn
         a = dict(attn)
@@ -196,35 +218,37 @@ def fuse_attention_params(params):
         a["to_k"] = merged(a["to_k"], "k_down", "k_up")
         a["to_v"] = merged(a["to_v"], "v_down", "v_up")
         a["to_out"] = merged(a["to_out"], "o_down", "o_up")
+        a["to_out"]["w"] = _cat_into(buffers, path + ("to_out", "w"), [a["to_out"]["w"]])
         return a
 
-    def fuse_block(blk):
+    def fuse_block(blk, path):
         out = dict(blk)
         a1 = blk.get("attn1")
         if isinstance(a1, dict) and "to_q" in a1:
-            a1 = merge_lora(dict(a1))
-            w = torch.cat([a1.pop("to_q")["w"], a1.pop("to_k")["w"],
-                           a1.pop("to_v")["w"]], dim=1)
+            a1 = merge_lora(dict(a1), path + ("attn1",))
+            w = _cat_into(buffers, path + ("attn1", "to_qkv", "w"),
+                          [a1.pop("to_q")["w"], a1.pop("to_k")["w"], a1.pop("to_v")["w"]])
             a1["to_qkv"] = {"w": w}
             out["attn1"] = a1
         a2 = blk.get("attn2")
         if isinstance(a2, dict) and "to_k" in a2:
-            a2 = merge_lora(dict(a2))
-            w = torch.cat([a2.pop("to_k")["w"], a2.pop("to_v")["w"]], dim=1)
+            a2 = merge_lora(dict(a2), path + ("attn2",))
+            w = _cat_into(buffers, path + ("attn2", "to_kv", "w"),
+                          [a2.pop("to_k")["w"], a2.pop("to_v")["w"]])
             a2["to_kv"] = {"w": w}
             out["attn2"] = a2
         return out
 
-    def walk(node):
+    def walk(node, path):
         if isinstance(node, dict):
             if "attn1" in node and "attn2" in node:
-                node = fuse_block(node)
-            return {k: walk(v) for k, v in node.items()}
+                node = fuse_block(node, path)
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, list):
-            return [walk(v) for v in node]
+            return [walk(v, path + (i,)) for i, v in enumerate(node)]
         return node
 
-    return walk(params)
+    return walk(params, ())
 
 
 FF_MULT = 4  # the feed-forward's inner width over dim

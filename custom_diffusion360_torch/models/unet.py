@@ -255,6 +255,13 @@ def precompute_context_kv(params, cfg: UNetConfig, context):
 # ---------------------------------------------------------------------------
 
 
+def _row_blocks(t, blocks, bb: int):
+    """The blocks of bb rows of t numbered ``blocks``, in that order, in one
+    copy (no index tensor, so nothing crosses from the host: the cached
+    steps run inside a CUDA graph, ``models/unet_graphs.py``)."""
+    return torch.cat([t[i * bb:(i + 1) * bb] for i in blocks])
+
+
 def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
                nerf_caches=None, ref_features=None, ctx_kv=None,
                compute_dtype=torch.float32, input_ref=None, sigmas_ref=None,
@@ -301,7 +308,7 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
     h = x.to(compute_dtype)
     fg_mask_list, alphas_list, rgb_list, rendered, ref_tokens = [], [], [], {}, {}
 
-    expand_rows = None
+    expand_blocks = None
     emb_full = emb
     if prefix_dedupe is not None and input_ref is None:
         groups = tuple(prefix_dedupe)
@@ -312,13 +319,11 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
             for ci, g in enumerate(groups):
                 first.setdefault(g, ci)
             order = sorted(first)
-            uniq_rows = torch.cat([torch.arange(first[g] * bb, (first[g] + 1) * bb)
-                                   for g in order]).to(h.device)
+            uniq_blocks = [first[g] for g in order]
             pos = {g: i for i, g in enumerate(order)}
-            expand_rows = torch.cat([torch.arange(pos[g] * bb, (pos[g] + 1) * bb)
-                                     for g in groups]).to(h.device)
-            h = h.index_select(0, uniq_rows)
-            emb = emb.index_select(0, uniq_rows)
+            expand_blocks = [pos[g] for g in groups]
+            h = _row_blocks(h, uniq_blocks, bb)
+            emb = _row_blocks(emb, uniq_blocks, bb)
 
     def both(fn, h, hr):
         """fn on the target stream, and without gradient on the reference
@@ -367,17 +372,17 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
     hs, hrs = [], []
     for lp_block, spec_block in zip(params["input_blocks"], inb_spec):
         for lp, spec in zip(lp_block, spec_block):
-            if expand_rows is not None and spec[0] == "attn":
-                h = h.index_select(0, expand_rows)
-                hs = [t.index_select(0, expand_rows) for t in hs]
-                emb, expand_rows = emb_full, None
+            if expand_blocks is not None and spec[0] == "attn":
+                h = _row_blocks(h, expand_blocks, bb)
+                hs = [_row_blocks(t, expand_blocks, bb) for t in hs]
+                emb, expand_blocks = emb_full, None
             h, hr = apply_layer(lp, spec, h, hr)
         hs.append(h)
         hrs.append(hr)
-    if expand_rows is not None:  # no attention in the input blocks
-        h = h.index_select(0, expand_rows)
-        hs = [t.index_select(0, expand_rows) for t in hs]
-        emb, expand_rows = emb_full, None
+    if expand_blocks is not None:  # no attention in the input blocks
+        h = _row_blocks(h, expand_blocks, bb)
+        hs = [_row_blocks(t, expand_blocks, bb) for t in hs]
+        emb, expand_blocks = emb_full, None
     for lp, spec in zip(params["middle_block"], mid_spec):
         h, hr = apply_layer(lp, spec, h, hr)
     for lp_block, spec_block in zip(params["output_blocks"], outb_spec):

@@ -20,6 +20,12 @@ same arithmetic in plain PyTorch).
 it launches the kernel (or raises on what the kernel does not take); for
 CPU tensors it runs the plain version ``attention_plain``.
 
+Both wrappers take an ``out=`` buffer to write into, and both hand their
+launch to ``capture_split`` while one is set: the piecewise CUDA-graph
+capture of the cached UNet evaluation (``models/unet_graphs.py``) ends a
+graph there, so that every attention launch stays eager, inside its span
+and counted, between the replayed segments.
+
 ``block_attention`` and ``block_attention_qkv_fused`` are autograd
 Functions around it: the forward is ``attention_fwd``, the backward the
 JAX package's recompute in plain f32 (``attention_bwd_plain``, JAX
@@ -158,12 +164,13 @@ def _longlongs(values):
     return (ctypes.c_longlong * len(values))(*values)
 
 
-def _launch(q, k, v, scale: float, kv_len: Optional[int]):
+def _launch(q, k, v, scale: float, kv_len: Optional[int], out=None):
     """One launch of ``csrc/attention_sm90.cu`` (d = 64) or
     ``csrc/attention512_sm90.cu`` (d = 512; with its merge launch when the
     keys are split) on CUDA (b, h, n, d) q and (b, h, m, d) k, v -> (b, h,
-    n, d) view of (b, n, h, d) storage; raises on what the kernel does not
-    take. Counts nothing; records its key splits in ``splits_launched``."""
+    n, d) view of (b, n, h, d) storage, or ``out``, a (b, h, n, d) tensor
+    of q's dtype and device to write into; raises on what the kernel does
+    not take. Counts nothing; records its key splits in ``splits_launched``."""
     b, h, n, d = q.shape
     m = k.shape[2]
     if k.shape != (b, h, m, d) or v.shape != (b, h, m, d):
@@ -176,7 +183,11 @@ def _launch(q, k, v, scale: float, kv_len: Optional[int]):
     kv_len = m if kv_len is None else int(kv_len)
     if not 0 < kv_len <= m:
         raise ValueError(f"kv_len {kv_len} outside (0, {m}]")
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if out is None:
+        out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    elif out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
+        raise ValueError(f"attention out {tuple(out.shape)} {out.dtype} {out.device} is not "
+                         f"q's {tuple(q.shape)} {q.dtype} {q.device}")
     _, strides = tma_map_args(q, k, v, out)  # checks dtype, d, strides and offsets
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if t.data_ptr() % 16:
@@ -206,6 +217,10 @@ def _launch(q, k, v, scale: float, kv_len: Optional[int]):
 # the key splits that the last launch at each (b, h, n, m, d) ran with
 splits_launched = {}
 
+# while a piecewise CUDA-graph capture runs (models/unet_graphs.py): called
+# as capture_split(wrapper, q, k, v, scale, kv_len) in place of a launch
+capture_split = None
+
 
 def layout_of(q):
     """How a (b, h, n, d) operand lies in memory, from its strides: "packed"
@@ -221,9 +236,10 @@ def layout_of(q):
     return "strided"
 
 
-def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None):
+def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None, out=None):
     """Non-causal attention. q: (b, h, n, d); k, v: (b, h, m, d), any
-    strides with a unit last stride -> (b, h, n, d).
+    strides with a unit last stride -> (b, h, n, d), written into ``out``
+    where given (CUDA).
 
     CUDA tensors launch ``csrc/attention_sm90.cu`` (d = 64) or
     ``csrc/attention512_sm90.cu`` (d = 512), bf16; the result is a (b, h, n, d) view
@@ -231,12 +247,15 @@ def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None):
     transpose back for free, inside the span ``cd360.op.attention``. CPU
     tensors run ``attention_plain``. Launches are counted by shape and q's
     layout (b, h, n, m, d, kv_len, ``layout_of(q)``) in
-    ``attention_fwd.launches_by_shape``.
+    ``attention_fwd.launches_by_shape``. While ``capture_split`` is set,
+    the call goes to it.
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, kv_len)
+    if capture_split is not None:
+        return capture_split(attention_fwd, q, k, v, scale, kv_len)
     with span("cd360.op.attention"):
-        out = _launch(q, k, v, scale, kv_len)
+        out = _launch(q, k, v, scale, kv_len, out)
     b, h, n, d = q.shape
     m = k.shape[2]
     attention_fwd.launches_by_shape[
@@ -247,18 +266,22 @@ def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None):
 attention_fwd.launches_by_shape = Counter()
 
 
-def attention_bnhd_fwd(q, k, v, scale: float, kv_len: Optional[int] = None):
+def attention_bnhd_fwd(q, k, v, scale: float, kv_len: Optional[int] = None, out=None):
     """Non-causal attention on the (b, n, h, d) layout: q (b, n, h, d), k, v
-    (b, m, h, d) -> contiguous (b, n, h, d). CUDA: the attention kernel on
-    the (b, h, *, d) views, no transpose copies, inside the span
-    ``cd360.op.attention``; launches counted by shape (b, n, h, m, d,
-    kv_len) in ``attention_bnhd_fwd.launches_by_shape``. CPU:
+    (b, m, h, d) -> contiguous (b, n, h, d), or ``out`` of that shape.
+    CUDA: the attention kernel on the (b, h, *, d) views, no transpose
+    copies, inside the span ``cd360.op.attention``; launches counted by
+    shape (b, n, h, m, d, kv_len) in ``attention_bnhd_fwd.launches_by_shape``;
+    while ``capture_split`` is set, the call goes to it. CPU:
     ``attention_plain`` on the transposed views."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cpu":
         return attention_plain(qt, kt, vt, scale, kv_len).transpose(1, 2)
+    if capture_split is not None:
+        return capture_split(attention_bnhd_fwd, q, k, v, scale, kv_len)
     with span("cd360.op.attention"):
-        out = _launch(qt, kt, vt, scale, kv_len).transpose(1, 2)
+        out = _launch(qt, kt, vt, scale, kv_len,
+                      None if out is None else out.transpose(1, 2)).transpose(1, 2)
     b, n, h, d = q.shape
     m = k.shape[1]
     attention_bnhd_fwd.launches_by_shape[(b, n, h, m, d, m if kv_len is None else int(kv_len))] += 1

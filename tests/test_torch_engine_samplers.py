@@ -33,6 +33,7 @@ from custom_diffusion360_torch.diffusion.guiders import (
 from custom_diffusion360_torch.draws import Draws
 from custom_diffusion360_torch.engine import Engine, EngineConfig
 from custom_diffusion360_torch.geometry.cameras import Cameras
+from custom_diffusion360_torch.models import unet_graphs
 from custom_diffusion360_torch.models.unet import UNetConfig
 from custom_diffusion360_torch.models.vae import VAEConfig
 from tests.test_cameras import random_cameras
@@ -125,6 +126,17 @@ def test_engine_sampler_matches_jax(setup, sampler, copies):
     assert steps == list(range(STEPS))
     assert float(np.abs(want - noise * np.sqrt(1 + 14.6**2)).max()) > 1.0  # it moved
     assert _rel(got, want), (sampler, copies, max_err(got, want))
+
+
+@pytest.mark.parametrize("copies", [2, 3])
+def test_cached_steps_on_the_cpu_replay_no_graphs(setup, copies):
+    """The default (Euler) cached route against JAX, and the cached steps'
+    CUDA-graph path (models/unet_graphs.py) counted nothing: on the CPU the
+    network runs as it is built."""
+    before = dict(unet_graphs.evaluations)
+    got = run_port(setup, copies)
+    assert _rel(got, run_jax(setup, copies))
+    assert dict(unet_graphs.evaluations) == before
 
 
 def test_engine_config_sampler_and_edm_schedule_match_jax(setup):
