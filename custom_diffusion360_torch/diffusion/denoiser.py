@@ -8,11 +8,13 @@ with (c_skip, c_out, c_in) from the configured scaling ("eps", "edm" or
 the nearest entry of a ``num_idx``-step LegacyDDPM grid and, with
 ``quantize_c_noise``, hands the network the grid index (first index on
 ties, as jnp.argmin); otherwise the network gets sigma itself, as in the
-JAX package. The reference latents, when given with ``sigmas_ref``, are
-c_in-scaled here by the same scaling, with their sigmas quantized the same
-way; in training they are first noised a second time with ``noise_ref`` (on
-top of the loss's noising: the reference implementation's double noising,
-kept for parity).
+JAX package, or, for the scalings in ``NETWORK_GETS_C_NOISE``, the
+scaling's c_noise, as sgm's Denoiser hands it (Stable Video Diffusion's
+``VScalingWithEDMNoise``: 0.25 ln sigma). The reference
+latents, when given with ``sigmas_ref``, are c_in-scaled here by the same
+scaling, with their sigmas quantized the same way; in training they are
+first noised a second time with ``noise_ref`` (on top of the loss's
+noising: the reference implementation's double noising, kept for parity).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import Callable
 import torch
 
 from .discretization import legacy_ddpm_sigmas
-from .scaling import get_scaling, get_weighting
+from .scaling import NETWORK_GETS_C_NOISE, get_scaling, get_weighting
 
 NUM_IDX = 1000
 
@@ -45,6 +47,7 @@ class Denoiser:
         self.cfg = cfg
         self.scaling = get_scaling(cfg.scaling)
         self.weighting = get_weighting(cfg.weighting)
+        self.network_gets_c_noise = cfg.scaling in NETWORK_GETS_C_NOISE
         # ascending grid without zero
         self.sigmas = (legacy_ddpm_sigmas(cfg.num_idx, device=device, append_zero=False,
                                           flip=True) if cfg.discrete else None)
@@ -84,6 +87,7 @@ class Denoiser:
                 sigmas_ref = self.quantize_c_noise(sigmas_ref)
             kwargs.update(input_ref=input_ref, sigmas_ref=sigmas_ref)
         sigma = self.quantize_sigma(sigma)
-        c_skip, c_out, c_in, _ = self.scaling(_append_dims(sigma, x.dim()))
-        pred, aux = network(x * c_in, self.quantize_c_noise(sigma), cond, **kwargs)
+        c_skip, c_out, c_in, c_noise = self.scaling(_append_dims(sigma, x.dim()))
+        c_noise = c_noise.reshape(sigma.shape) if self.network_gets_c_noise else sigma
+        pred, aux = network(x * c_in, self.quantize_c_noise(c_noise), cond, **kwargs)
         return pred * c_out + x * c_skip, aux

@@ -30,6 +30,13 @@ def v_scaling(sigma):
     return c_skip, c_out, c_in, c_noise
 
 
+def v_edm_noise_scaling(sigma):
+    """v's c_skip, c_out and c_in with EDM's c_noise = ln(sigma) / 4 (sgm
+    VScalingWithEDMNoise, Stable Video Diffusion's denoiser)."""
+    c_skip, c_out, c_in, _ = v_scaling(sigma)
+    return c_skip, c_out, c_in, 0.25 * torch.log(sigma)
+
+
 def unit_weighting(sigma):
     return torch.ones_like(sigma)
 
@@ -52,6 +59,7 @@ _SCALINGS = {
     "eps": eps_scaling, "EpsScaling": eps_scaling,
     "edm": edm_scaling, "EDMScaling": edm_scaling,
     "v": v_scaling, "VScaling": v_scaling,
+    "v_edm_noise": v_edm_noise_scaling, "VScalingWithEDMNoise": v_edm_noise_scaling,
 }
 
 _WEIGHTINGS = {
@@ -60,6 +68,11 @@ _WEIGHTINGS = {
     "v": v_weighting, "VWeighting": v_weighting,
     "eps": eps_weighting, "EpsWeighting": eps_weighting,
 }
+
+
+# scalings whose c_noise the network receives (sgm's Denoiser hands c_noise
+# on); the others hand it sigma, as the JAX package does
+NETWORK_GETS_C_NOISE = frozenset({"v_edm_noise", "VScalingWithEDMNoise"})
 
 
 def get_scaling(kind: str):

@@ -20,8 +20,12 @@ features come from delta-checkpoint buffers or from live reference latents
 for the samplers that draw every step, a ``draws.Draws``; ``cond``/``uc``
 are the conditioner's outputs (crossattn (B, 77, 2048), vector (B, 2816);
 ``get_unconditional_conditioning``). Under the x3 guider two dedupes apply
-(see ``sample``). ``samplemulti`` is MultiDiffusion over several poses;
-``log_images`` makes the training CLI's preview grids.
+(see ``sample``). A video network (``VideoUNetConfig``, Stable Video
+Diffusion) samples clips through the same ``sample``: no pose blocks, the
+conditioning's "concat" latents joined to the network's input channels,
+``num_frames`` frames a clip, under the general conditioner's video stack
+(``models/general_conditioner.py``). ``samplemulti`` is MultiDiffusion
+over several poses; ``log_images`` makes the training CLI's preview grids.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from .diffusion.sampling import (
 )
 from .geometry.cameras import Cameras
 from .models.conditioner import ConditionerConfig, apply_conditioner, init_conditioner_params
+from .models.general_conditioner import VideoConditionerConfig, init_video_conditioner_params
 from .models.nerf import CompactRefTokens, view_sharded
 from .models.nn import torch_dtype
 from .models.transformer import fuse_attention_params
@@ -66,6 +71,7 @@ class EngineConfig:
     sampler: SamplerConfig = SamplerConfig()
     sampler_name: str = "euler_edm"  # a key of diffusion.sampling.SAMPLERS
     discretization_name: str = "legacy_ddpm"  # or "edm" (make_sigmas)
+    sigma_max: Optional[float] = None  # the EDM schedule's, where not its default 80
     num_sample_steps: int = 50
     compute_dtype: str = "float32"
 
@@ -98,12 +104,19 @@ class Engine:
         """Seeded random {"unet", "vae", "conditioner"} parameters on the
         engine's device (in the compute dtype unless ``dtype`` is given)."""
         dtype = self.cfg.dtype if dtype is None else dtype
+        init_cond = (init_video_conditioner_params
+                     if isinstance(self.cfg.conditioner, VideoConditionerConfig)
+                     else init_conditioner_params)
         return {
             "unet": init_unet_params(self.cfg.unet, seed, self.device, dtype),
             "vae": init_vae_params(self.cfg.vae, seed + 1, self.device, dtype),
-            "conditioner": init_conditioner_params(self.cfg.conditioner, seed + 2,
-                                                   self.device, dtype),
+            "conditioner": init_cond(self.cfg.conditioner, seed + 2, self.device, dtype),
         }
+
+    def sigmas(self, n: int):
+        """The configured sampling schedule of ``n`` steps (host f32)."""
+        kw = {} if self.cfg.sigma_max is None else {"sigma_max": self.cfg.sigma_max}
+        return make_sigmas(self.cfg.discretization_name, n, **kw)
 
     @torch.inference_mode()
     @spanned("cd360.decode")
@@ -123,18 +136,22 @@ class Engine:
         return (n, h // f, w // f, self.cfg.vae.z_channels)
 
     def network_fn(self, params, cams: Optional[Cameras], mask_ref=None, *, nerf_caches=None,
-                   ref_features=None, ctx_kv=None, draws=None, prefix_dedupe=None):
+                   ref_features=None, ctx_kv=None, draws=None, prefix_dedupe=None,
+                   num_frames: Optional[int] = None):
         """network(x, t, cond, input_ref=, sigmas_ref=) -> (eps, aux), the
         callable the Denoiser wraps; ``draws`` makes the renders stochastic
-        (training)."""
+        (training). A "concat" entry of ``cond`` joins x's channels (sgm's
+        OpenAIWrapper); ``num_frames``: a video network's frames a clip."""
 
         def network(x, t, cond, input_ref=None, sigmas_ref=None):
+            if "concat" in cond:
+                x = torch.cat([x, cond["concat"].to(x.dtype)], dim=-1)
             return unet_apply(
                 params["unet"], self.cfg.unet, x, t, cond["crossattn"], cond["vector"],
                 cams=cams, nerf_caches=nerf_caches, ref_features=ref_features,
                 ctx_kv=ctx_kv, compute_dtype=self.cfg.dtype, input_ref=input_ref,
                 sigmas_ref=sigmas_ref, mask_ref=mask_ref, draws=draws,
-                prefix_dedupe=prefix_dedupe,
+                prefix_dedupe=prefix_dedupe, num_video_frames=num_frames,
             )
 
         return network
@@ -223,7 +240,8 @@ class Engine:
                num_steps: Optional[int] = None, cache_nerf: bool = True,
                sampler: Optional[str] = None, draws=None,
                callback: Optional[Callable[[int], None]] = None,
-               shared_target_cams: bool = False, cfg_group=None, view_group=None):
+               shared_target_cams: bool = False, cfg_group=None, view_group=None,
+               num_frames: Optional[int] = None):
         """Pose-conditioned sampling -> latents (B, h, w, 4) f32.
 
         noise: (B, h, w, 4) standard normal draws (the initial latent before
@@ -275,10 +293,14 @@ class Engine:
         no view collective. It composes with ``cfg_group`` on a (cfg, view)
         grid (``parallel.new_groups_2d``): a view group then holds ranks of
         the same CFG rows. The x3 render dedupe is off under it.
+
+        num_frames: a video network's frames a clip; the batch B then holds
+        B / num_frames clips, clip-major, and ``cond`` / ``uc`` one row a
+        frame (crossattn, vector and the "concat" latents).
         """
         cfg = self.cfg
         n_steps = num_steps or cfg.num_sample_steps
-        sigmas = make_sigmas(cfg.discretization_name, n_steps)  # host f32
+        sigmas = self.sigmas(n_steps)  # host f32
         x = noise.to(self.device, torch.float32) * torch.sqrt(1.0 + sigmas[0] ** 2)
         b = x.shape[0]
         name = sampler or cfg.sampler_name
@@ -374,7 +396,7 @@ class Engine:
                 return self.network_fn(
                     params, cams, mask_ref, nerf_caches=caches,
                     ref_features=None if caches is not None else ref_features,
-                    ctx_kv=kv, prefix_dedupe=prefix_dedupe,
+                    ctx_kv=kv, prefix_dedupe=prefix_dedupe, num_frames=num_frames,
                 )
 
             if nerf_caches is None:
@@ -435,7 +457,7 @@ class Engine:
         noise: the wide latent's draws (B, H, stride * (views + 1), 4).
         Every step renders (no cache), as in the JAX package."""
         n_steps = num_steps or self.cfg.num_sample_steps
-        sigmas = make_sigmas(self.cfg.discretization_name, n_steps)
+        sigmas = self.sigmas(n_steps)
         b = noise.shape[0]
         params = dict(params, unet=fuse_attention_params(params["unet"]))
         ref_features = None

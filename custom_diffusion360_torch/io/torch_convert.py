@@ -7,8 +7,12 @@ which stay torch's OIHW (io/from_jax.py): so torch linears transpose
 LayerNorm weight/bias become scale/bias. Key layouts: the sgm SDXL UNet
 (``model.diffusion_model.*``), the sgm VAE (``first_stage_model.*``), the HF
 CLIPTextModel (``conditioner.embedders.0.transformer.*``) and the open_clip
-text tower (``conditioner.embedders.1.model.*``). Leaves keep the
-checkpoint's dtype; a ``.safetensors`` file is read without the
+text tower (``conditioner.embedders.1.model.*``); and Stable Video
+Diffusion's (``convert_svd_state_dict``): the VideoUNet's ``time_stack``,
+``time_pos_embed`` and ``time_mixer`` leaves, the conditioner's ViT-H/14
+(``conditioner.embedders.0.open_clip.model.visual.*``) and VAE encoder
+(``conditioner.embedders.3.encoder.*``). Leaves keep the
+checkpoint's dtype and device; a ``.safetensors`` file is read without the
 ``safetensors`` package (io/safetensors.py).
 """
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Dict
 
 import torch
 
-from ..models.clip import CLIP_L_CONFIG, OPEN_CLIP_BIGG_CONFIG, ClipTextConfig
+from ..models.clip import CLIP_L_CONFIG, OPEN_CLIP_BIGG_CONFIG, ClipTextConfig, ClipVisionConfig
 from ..models.unet import UNetConfig, build_unet_spec
 from ..models.vae import VAEConfig
 from .safetensors import load_safetensors
@@ -109,6 +113,27 @@ def _spatial_transformer(sd, p, cfg: UNetConfig, ch, depth, attn_id):
     }
 
 
+def _video_transformer(sd, p, cfg: UNetConfig, ch, depth, attn_id):
+    out = _spatial_transformer(sd, p, cfg, ch, depth, attn_id)
+    out["time_stack"] = [
+        dict(_transformer_block(sd, f"{p}.time_stack.{d}", False),
+             norm_in=_norm(sd, f"{p}.time_stack.{d}.norm_in"),
+             ff_in={"proj": _lin(sd, f"{p}.time_stack.{d}.ff_in.net.0.proj"),
+                    "out": _lin(sd, f"{p}.time_stack.{d}.ff_in.net.2")})
+        for d in range(depth)]
+    out["time_pos_embed"] = {"l1": _lin(sd, p + ".time_pos_embed.0"),
+                             "l2": _lin(sd, p + ".time_pos_embed.2")}
+    out["mix_factor"] = sd[p + ".time_mixer.mix_factor"]
+    return out
+
+
+def _video_resblock(sd, p):
+    out = _resblock(sd, p)
+    out["time_stack"] = _resblock(sd, p + ".time_stack")  # (out, in, k, 1, 1) kernels
+    out["mix_factor"] = sd[p + ".time_mixer.mix_factor"]
+    return out
+
+
 def _resblock(sd, p):
     out = {
         "norm_in": _norm(sd, p + ".in_layers.0"),
@@ -124,7 +149,8 @@ def _resblock(sd, p):
 
 def convert_unet_state_dict(sd, cfg: UNetConfig = UNetConfig(),
                             prefix: str = "model.diffusion_model."):
-    """sgm SDXL UNet keys -> an ``init_unet_params``-shaped tree."""
+    """sgm SDXL UNet keys (or VideoUNet keys, for a ``video`` config) -> an
+    ``init_unet_params``-shaped tree."""
     P = prefix
     inb_spec, mid_spec, outb_spec, _ = build_unet_spec(cfg)
 
@@ -134,9 +160,14 @@ def convert_unet_state_dict(sd, cfg: UNetConfig = UNetConfig(),
             return _conv(sd, p)
         if kind == "res":
             return _resblock(sd, p)
+        if kind == "vres":
+            return _video_resblock(sd, p)
         if kind == "attn":
             _, ch, depth, attn_id = spec
             return _spatial_transformer(sd, p, cfg, ch, depth, attn_id)
+        if kind == "vattn":
+            _, ch, depth, attn_id = spec
+            return _video_transformer(sd, p, cfg, ch, depth, attn_id)
         if kind == "down":
             return _conv(sd, p + ".op")
         if kind == "up":
@@ -176,7 +207,10 @@ def _vae_attn(sd, p):
             "v": _conv(sd, p + ".v"), "proj_out": _conv(sd, p + ".proj_out")}
 
 
-def convert_vae_state_dict(sd, cfg: VAEConfig = VAEConfig(), prefix: str = "first_stage_model."):
+def convert_vae_state_dict(sd, cfg: VAEConfig = VAEConfig(), prefix: str = "first_stage_model.",
+                           decoder: bool = True):
+    """sgm VAE keys -> ``init_vae_params``' tree; without ``decoder`` the
+    encoder and ``quant_conv`` alone (what ``vae_encode`` reads)."""
     P = prefix
     n_lv = len(cfg.ch_mult)
     enc = {"conv_in": _conv(sd, P + "encoder.conv_in")}
@@ -191,6 +225,8 @@ def convert_vae_state_dict(sd, cfg: VAEConfig = VAEConfig(), prefix: str = "firs
                   "block_2": _vae_res(sd, P + "encoder.mid.block_2")}
     enc["norm_out"] = _norm(sd, P + "encoder.norm_out")
     enc["conv_out"] = _conv(sd, P + "encoder.conv_out")
+    if not decoder:
+        return {"encoder": enc, "quant_conv": _conv(sd, P + "quant_conv")}
 
     dec = {"conv_in": _conv(sd, P + "decoder.conv_in"),
            "mid": {"block_1": _vae_res(sd, P + "decoder.mid.block_1"),
@@ -287,6 +323,39 @@ def convert_open_clip_state_dict(sd, cfg: ClipTextConfig,
         "ln_final": _norm(sd, P + "ln_final"),
         "text_projection": {"w": sd[P + "text_projection"]},
         "modifier_rows": extra,
+    }
+
+
+def convert_open_clip_vision(sd, cfg: ClipVisionConfig, prefix: str = "visual."):
+    """open_clip VisionTransformer keys under ``prefix`` -> the vision
+    tower's tree (``models/clip.py``). The conv kernel goes OIHW -> HWIO."""
+    P = prefix
+    return {
+        "patch_embed": sd[P + "conv1.weight"].permute(2, 3, 1, 0).contiguous(),
+        "class_embedding": sd[P + "class_embedding"],
+        "positional_embedding": sd[P + "positional_embedding"],
+        "ln_pre": _norm(sd, P + "ln_pre"),
+        "blocks": open_clip_blocks(sd, P, cfg.width, cfg.layers),
+        "ln_post": _norm(sd, P + "ln_post"),
+        "proj": sd[P + "proj"],  # already (width, embed_dim)
+    }
+
+
+def convert_svd_state_dict(sd, unet_cfg: UNetConfig, vae_cfg: VAEConfig,
+                           vision_cfg: ClipVisionConfig = ClipVisionConfig()):
+    """A Stable Video Diffusion checkpoint's keys (``svd.safetensors``,
+    ``svd_image_decoder.safetensors``) -> {"unet", "vae", "conditioner":
+    {"cond_frames_without_noise", "cond_frames"}} for ``Engine`` with a
+    ``video`` UNet config and a ``VideoConditionerConfig``."""
+    return {
+        "unet": convert_unet_state_dict(sd, unet_cfg),
+        "vae": convert_vae_state_dict(sd, vae_cfg),
+        "conditioner": {
+            "cond_frames_without_noise": convert_open_clip_vision(
+                sd, vision_cfg, "conditioner.embedders.0.open_clip.model.visual."),
+            "cond_frames": convert_vae_state_dict(sd, vae_cfg, "conditioner.embedders.3.encoder.",
+                                                  decoder=False),
+        },
     }
 
 

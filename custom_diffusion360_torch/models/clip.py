@@ -238,7 +238,7 @@ def load_clip_vision_torch(state_dict, cfg: ClipVisionConfig, naming: str = "ope
     v, ``mlp.c_fc`` / ``c_proj``); ``"hf"``: HuggingFace
     CLIPVisionModelWithProjection keys. The conv kernel goes OIHW ->
     HWIO."""
-    from ..io.torch_convert import hf_clip_blocks, open_clip_blocks
+    from ..io.torch_convert import convert_open_clip_vision, hf_clip_blocks
 
     sd = {k: torch.as_tensor(v.detach().cpu() if hasattr(v, "detach") else v).float()
           for k, v in state_dict.items()
@@ -248,15 +248,7 @@ def load_clip_vision_torch(state_dict, cfg: ClipVisionConfig, naming: str = "ope
         return {"scale": sd[prefix + ".weight"], "bias": sd[prefix + ".bias"]}
 
     if naming == "open_clip":
-        return {
-            "patch_embed": sd["visual.conv1.weight"].permute(2, 3, 1, 0).contiguous(),
-            "class_embedding": sd["visual.class_embedding"],
-            "positional_embedding": sd["visual.positional_embedding"],
-            "ln_pre": norm("visual.ln_pre"),
-            "blocks": open_clip_blocks(sd, "visual.", cfg.width, cfg.layers),
-            "ln_post": norm("visual.ln_post"),
-            "proj": sd["visual.proj"],  # already (width, embed_dim)
-        }
+        return convert_open_clip_vision(sd, cfg)
     if naming == "hf":
         emb = "vision_model.embeddings."
         return {

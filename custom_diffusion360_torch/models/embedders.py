@@ -3,7 +3,9 @@ custom_diffusion360_tpu/models/embedders.py): IdentityEncoder,
 ClassEmbedder(ForMultiCond), FrozenOpenCLIPEmbedder2,
 FrozenOpenCLIPImageEmbedder with its CLIP preprocess, FrozenCLIPT5Encoder,
 SpatialRescaler, LowScaleEncoder and GaussianEncoder, each a function over
-dicts of tensors (NHWC images).
+dicts of tensors (NHWC images); and Stable Video Diffusion's
+FrozenOpenCLIPImagePredictionEmbedder and VideoPredictionEmbedderWithEncoder,
+which have no JAX counterpart.
 
 Randomness enters as named draws (``draws.Draws``), so a test can hand
 both packages the same numbers: "ucg" (uniforms (B,), a row is kept where
@@ -19,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.image_resize import resize_images
@@ -26,7 +29,7 @@ from .clip import ClipTextConfig, ClipVisionConfig, clip_text_apply, clip_vision
 from .nn import Init, conv2d, conv2d_init, layer_norm, nearest_indices
 from .regularizers import diagonal_gaussian_regularizer
 from .t5 import T5Config, t5_encode
-from .vae import VAEConfig, vae_decode, vae_encode
+from .vae import VAEConfig, diagonal_gaussian_sample, vae_decode, vae_encode
 
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -266,3 +269,59 @@ def gaussian_encoder(vae_params, x, draws, weight: float = 1.0, flatten_output: 
         b, h, w, c = z.shape
         z = z.reshape(b, h * w, c)
     return log, z
+
+
+# ---------------------------------------------------------------------------
+# Stable Video Diffusion's embedders (sgm encoders/modules.py)
+# ---------------------------------------------------------------------------
+
+
+def _gaussian_1d(k: int, sigma: float, device):
+    t = torch.arange(k, dtype=torch.float32, device=device) - k // 2
+    g = torch.exp(-t * t / (2.0 * sigma * sigma))
+    return g / g.sum()
+
+
+def sgm_clip_image_preprocess(x, size: int = 224):
+    """(B, H, W, 3) in [-1, 1] -> (B, size, size, 3) CLIP-normalized f32, as
+    sgm's FrozenOpenCLIPImageEmbedder.preprocess: ``kornia.geometry.resize``
+    to size x size (bicubic, align_corners, antialias: where it shrinks, a
+    separable Gaussian of sigma (factor - 1) / 2 over a kernel of
+    int(max(4 sigma, 3)) taps made odd, reflect-padded), then [0, 1], then
+    the CLIP mean and std."""
+    x = x.float().permute(0, 3, 1, 2)
+    h, w = x.shape[-2:]
+    if (h, w) != (size, size):
+        factors = (h / size, w / size)
+        if max(factors) > 1:
+            c = x.shape[1]
+            sig = [max((f - 1.0) / 2.0, 0.001) for f in factors]
+            ks = [int(max(4.0 * s, 3)) for s in sig]
+            ks = [k + 1 - k % 2 for k in ks]
+            gx = _gaussian_1d(ks[1], sig[1], x.device).view(1, 1, 1, -1).expand(c, 1, 1, -1)
+            gy = _gaussian_1d(ks[0], sig[0], x.device).view(1, 1, -1, 1).expand(c, 1, -1, 1)
+            x = F.conv2d(F.pad(x, (ks[1] // 2, ks[1] // 2, 0, 0), mode="reflect"), gx, groups=c)
+            x = F.conv2d(F.pad(x, (0, 0, ks[0] // 2, ks[0] // 2), mode="reflect"), gy, groups=c)
+        x = F.interpolate(x, size=(size, size), mode="bicubic", align_corners=True)
+    x = (x + 1.0) / 2.0
+    mean = torch.tensor(CLIP_IMAGE_MEAN, device=x.device)[:, None, None]
+    std = torch.tensor(CLIP_IMAGE_STD, device=x.device)[:, None, None]
+    return ((x - mean) / std).permute(0, 2, 3, 1)
+
+
+def open_clip_image_prediction_embedder(params, vid, cfg: ClipVisionConfig):
+    """FrozenOpenCLIPImagePredictionEmbedder at svd.yaml's n_cond_frames =
+    n_copies = 1: vid (B, H, W, 3) in [-1, 1] -> the pooled image
+    embedding (B, 1, embed_dim)."""
+    return clip_vision_apply(params, sgm_clip_image_preprocess(vid, cfg.image_size), cfg)[:, None]
+
+
+def video_prediction_embedder_with_encoder(vae_params, vid, vae_cfg: VAEConfig):
+    """VideoPredictionEmbedderWithEncoder at svd.yaml's settings (is_ae, one
+    conditioning frame, one copy, no scale factor): the VAE posterior's
+    mode of vid (B, H, W, 3) -> (B, H / 8, W / 8, z_channels), in the VAE's
+    dtype. The encode runs in the VAE's dtype too: svd.yaml's
+    ``disable_encoder_autocast`` has sgm encode in float32, so a bfloat16
+    VAE departs from the source here."""
+    dtype = vae_params["quant_conv"]["w"].dtype
+    return diagonal_gaussian_sample(vae_encode(vae_params, vid.to(dtype), vae_cfg))

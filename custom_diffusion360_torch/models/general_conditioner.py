@@ -22,6 +22,13 @@ models/embedders.py).
 As in the JAX package, paired outputs are split at the target's row count,
 not halved with ``chunk(2)`` as the reference does (the same where the two
 halves have equal rows).
+
+Stable Video Diffusion's stack (``svd.yaml``; no JAX counterpart) is
+``video_conditioner_specs``: the ViT-H/14 image embedding of the clean
+conditioning frame -> crossattn, the sinusoidal ``fps_id``,
+``motion_bucket_id`` and ``cond_aug`` -> vector, the VAE mode of the
+noised frame -> concat. ``video_conditioning`` runs it as
+``scripts/sampling/simple_video_sample.py`` does for one clip.
 """
 from __future__ import annotations
 
@@ -29,6 +36,11 @@ import dataclasses
 from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
+
+from . import embedders
+from .clip import ClipVisionConfig, init_clip_vision_params
+from .conditioner import embed_size_tuple
+from .vae import VAEConfig, init_vae_params
 
 OUTPUT_DIM2KEYS = {2: "vector", 3: "crossattn", 4: "concat", 5: "concat"}
 
@@ -134,4 +146,77 @@ def general_get_unconditional_conditioning(params, specs: Sequence[EmbedderSpec]
     uc = general_conditioner_apply(params, no_ucg, batch_c if batch_uc is None else batch_uc,
                                    force_zero_embeddings=force_uc_zero_embeddings,
                                    force_ref_zero_embeddings=force_ref_zero_embeddings)
+    return c, uc
+
+
+# ---------------------------------------------------------------------------
+# Stable Video Diffusion img2vid (svd.yaml's conditioner_config)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class VideoConditionerConfig:
+    vision: ClipVisionConfig = ClipVisionConfig()  # ViT-H/14, 1024-d pooled
+    vae: VAEConfig = VAEConfig(scale_factor=0.18215)
+    outdim: int = 256  # each ConcatTimestepEmbedderND's width
+
+
+# the entries the unconditional pass zeroes (simple_video_sample.py)
+VIDEO_UC_ZERO = ("cond_frames", "cond_frames_without_noise")
+
+
+def video_conditioner_specs(cfg: VideoConditionerConfig):
+    """The embedders of svd.yaml in order; the params slots are
+    "cond_frames_without_noise" (the vision tower) and "cond_frames" (the
+    VAE)."""
+
+    def timestep(key):  # ConcatTimestepEmbedderND of one value a row
+        return EmbedderSpec(key, lambda p, v: embed_size_tuple(v[:, None], cfg.outdim),
+                            input_key=key)
+
+    return [
+        EmbedderSpec("cond_frames_without_noise",
+                     lambda p, v: embedders.open_clip_image_prediction_embedder(
+                         p, v, cfg.vision),
+                     input_key="cond_frames_without_noise"),
+        timestep("fps_id"),
+        timestep("motion_bucket_id"),
+        EmbedderSpec("cond_frames",
+                     lambda p, v: embedders.video_prediction_embedder_with_encoder(
+                         p, v, cfg.vae),
+                     input_key="cond_frames"),
+        timestep("cond_aug"),
+    ]
+
+
+def init_video_conditioner_params(cfg: VideoConditionerConfig = VideoConditionerConfig(),
+                                  seed: int = 0, device="cuda", dtype=torch.float32):
+    vae = init_vae_params(cfg.vae, seed + 1, device, dtype)
+    return {"cond_frames_without_noise": init_clip_vision_params(cfg.vision, seed, device, dtype),
+            "cond_frames": {"encoder": vae["encoder"], "quant_conv": vae["quant_conv"]}}
+
+
+def video_batch(image, cond_noise, frames: int, fps_id: int, motion_bucket_id: int,
+                cond_aug: float):
+    """The conditioner's batch for one clip of ``frames`` frames:
+    image (1, H, W, 3) in [-1, 1], ``cond_noise`` standard normal draws of
+    its shape (the noised frame is image + cond_aug * cond_noise), the
+    three scalars one row a frame."""
+
+    def per_frame(v):
+        return torch.full((frames,), float(v), device=image.device)
+
+    return {"cond_frames_without_noise": image, "cond_frames": image + cond_aug * cond_noise,
+            "fps_id": per_frame(fps_id), "motion_bucket_id": per_frame(motion_bucket_id),
+            "cond_aug": per_frame(cond_aug)}
+
+
+def video_conditioning(params, cfg: VideoConditionerConfig, batch: dict, frames: int):
+    """(c, uc) of a ``video_batch``: uc with crossattn and concat zeroed,
+    and both repeated to one row a frame."""
+    c, uc = general_get_unconditional_conditioning(
+        params, video_conditioner_specs(cfg), batch, force_uc_zero_embeddings=VIDEO_UC_ZERO)
+    for d in (c, uc):
+        for k in ("crossattn", "concat"):
+            d[k] = d[k].repeat_interleave(frames, dim=0)
     return c, uc

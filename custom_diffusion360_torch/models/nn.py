@@ -54,6 +54,9 @@ class Init:
     def ones(self, shape):
         return torch.ones(shape, device=self.device, dtype=self.dtype)
 
+    def full(self, shape, value):
+        return torch.full(shape, float(value), device=self.device, dtype=self.dtype)
+
 
 def linear_init(init: Init, in_dim, out_dim, bias=True, zero=False, eye=False,
                 std=None):
@@ -80,6 +83,16 @@ def conv2d_init(init: Init, in_ch, out_ch, kernel=3, bias=True, zero=False):
     if bias:
         p["b"] = init.zeros((out_ch,)) if zero else init.uniform((out_ch,), bound)
     return p
+
+
+def conv_time_init(init: Init, in_ch, out_ch, kernel=3, zero=False):
+    """A (kernel, 1, 1) convolution over the frame axis: OIDHW kernel
+    (out, in, kernel, 1, 1), kaiming-uniform like ``conv2d_init``."""
+    bound = math.sqrt(1.0 / (in_ch * kernel))
+    shape = (out_ch, in_ch, kernel, 1, 1)
+    if zero:
+        return {"w": init.zeros(shape), "b": init.zeros((out_ch,))}
+    return {"w": init.uniform(shape, bound), "b": init.uniform((out_ch,), bound)}
 
 
 def group_norm_init(init: Init, channels):
@@ -127,6 +140,19 @@ def conv2d(p, x, stride=1, padding="SAME"):
     b = p["b"].to(x.dtype) if "b" in p else None
     y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride, padding=(pt, pl))
     return y.permute(0, 2, 3, 1)
+
+
+def conv_time(p, x, frames: int):
+    """The (k, 1, 1) convolution over the frames of a clip, zero-padded by
+    k // 2 frames at each end (sgm ``conv_nd(3, ..., (3, 1, 1))``). x:
+    (B * frames, H, W, C) NHWC frames, clip-major; it runs on the
+    channels-last NCDHW view of the clip, so no layout copy is made."""
+    bt, h, w, c = x.shape
+    k = p["w"].to(x.dtype)
+    b = p["b"].to(x.dtype) if "b" in p else None
+    clip = x.reshape(bt // frames, frames, h, w, c).permute(0, 4, 1, 2, 3)
+    y = F.conv3d(clip, k, b, padding=(k.shape[2] // 2, 0, 0))
+    return y.permute(0, 2, 3, 4, 1).reshape(bt, h, w, -1)
 
 
 def group_norm(p, x, num_groups=32, eps=1e-6):

@@ -11,6 +11,11 @@ without gradient (``torch.no_grad``, where the JAX package stop-gradients
 them), and each pose block renders from the reference activations that
 enter it. Training uses the canonical un-fused q/k/v projections.
 
+The video layers of Stable Video Diffusion's VideoUNet (sgm
+``video_attention.py``) sit at the end: ``spatial_video_transformer_apply``
+runs a spatial transformer block, then a temporal block over the frames of
+each clip at every token, and blends the two (``blend``).
+
 Tensor parallelism (``parallel/tp.py``): with local slices of the
 projections (``shard_params_tp``) inside ``tensor_parallel(group)``, every
 attention runs on its local heads (its width / d_head) and every to_out and
@@ -30,6 +35,7 @@ from ..geometry.cameras import Cameras
 from ..ops.attention import dot_product_attention, dot_product_attention_qkv
 from ..ops.volume_render import volume_render
 from ..parallel import tp
+from ..utils.trace import span
 from .nerf import CompactRefTokens, NerfConfig, init_nerf_params, nerfsd_apply
 from .nn import (
     Init,
@@ -40,6 +46,8 @@ from .nn import (
     layer_norm_init,
     linear,
     linear_init,
+    silu,
+    timestep_embedding,
     trunc_exp,
 )
 
@@ -467,3 +475,99 @@ def spatial_transformer_apply(p, x, context, cfg: TransformerConfig, *,
             xr = linear(p["proj_out"], xr).reshape(br, h, w, c) + xr_in
     return x, xr, dict(fg_masks=fg_masks, alphas=alphas_list, rgbs=rgbs,
                        rendered=rendered_out, ref_tokens=ref_tokens_out)
+
+
+# ---------------------------------------------------------------------------
+# video layers (sgm video_attention.py: SpatialVideoTransformer,
+# VideoTransformerBlock; util.py: AlphaBlender)
+# ---------------------------------------------------------------------------
+
+
+def mix_alpha(mix_factor, image_only):
+    """The spatial branch's weight in each frame's blend ("learned_with_
+    images"): sigmoid(mix_factor), or 1 on the frames that ``image_only``
+    (B * T,) bool marks. Returns (B * T,) f32."""
+    a = torch.sigmoid(mix_factor.float()).reshape(())
+    return torch.where(image_only, torch.ones_like(a), a)
+
+
+def blend(alpha, x_spatial, x_temporal):
+    """alpha x_spatial + (1 - alpha) x_temporal, alpha (B * T,) per frame,
+    each weight cast to x's dtype as the source's AlphaBlender does."""
+    a = alpha.reshape((-1,) + (1,) * (x_spatial.dim() - 1))
+    return a.to(x_spatial.dtype) * x_spatial + (1.0 - a).to(x_spatial.dtype) * x_temporal
+
+
+def init_video_transformer_block(init: Init, cfg: TransformerConfig):
+    """VideoTransformerBlock with ``ff_in`` (extra_ff_mix_layer) and a
+    cross-attention to the time context."""
+    dim = cfg.dim
+    return {
+        "norm_in": layer_norm_init(init, dim),
+        "ff_in": init_feedforward(init, dim),
+        "attn1": init_cross_attention(init, dim, dim, cfg.n_heads, cfg.d_head),
+        "attn2": init_cross_attention(init, dim, cfg.context_dim, cfg.n_heads, cfg.d_head),
+        "ff": init_feedforward(init, dim),
+        "norm1": layer_norm_init(init, dim),
+        "norm2": layer_norm_init(init, dim),
+        "norm3": layer_norm_init(init, dim),
+    }
+
+
+def video_transformer_block_apply(p, x, time_kv, cfg: TransformerConfig, frames: int):
+    """x: (B * T, S, C) tokens of B clips of T frames -> the same, each
+    token position attending over its clip's frames. time_kv: the
+    cross-attention's (k, v), each (B * S, M, inner), of the time context
+    (a clip's first-frame context at every position)."""
+    bt, s, c = x.shape
+    b = bt // frames
+    x = x.reshape(b, frames, s, c).transpose(1, 2).reshape(b * s, frames, c)
+    x = feedforward_apply(p["ff_in"], layer_norm(p["norm_in"], x)) + x
+    x = cross_attention_apply(p["attn1"], layer_norm(p["norm1"], x), None,
+                              n_heads=cfg.n_heads, d_head=cfg.d_head) + x
+    x = cross_attention_apply(p["attn2"], layer_norm(p["norm2"], x), None,
+                              n_heads=cfg.n_heads, kv=time_kv, d_head=cfg.d_head) + x
+    x = feedforward_apply(p["ff"], layer_norm(p["norm3"], x)) + x
+    return x.reshape(b, s, frames, c).transpose(1, 2).reshape(bt, s, c)
+
+
+def init_spatial_video_transformer(init: Init, in_channels: int, cfg: TransformerConfig,
+                                   merge_factor: float):
+    """SpatialVideoTransformer: a spatial transformer, a temporal block per
+    depth, the frame-position MLP (C -> 4C -> C) and the blend's
+    ``mix_factor``."""
+    p = init_spatial_transformer(init, in_channels, cfg)
+    p["time_stack"] = [init_video_transformer_block(init, cfg) for _ in range(cfg.depth)]
+    p["time_pos_embed"] = {"l1": linear_init(init, in_channels, 4 * in_channels),
+                           "l2": linear_init(init, 4 * in_channels, in_channels)}
+    p["mix_factor"] = init.full((1,), merge_factor)
+    return p
+
+
+def spatial_video_transformer_apply(p, x, context, cfg: TransformerConfig, frames: int,
+                                    image_only):
+    """x: (B * T, H, W, C) NHWC frames of B clips of T frames; context:
+    (B * T, M, Cc), a clip's frames' rows in order; image_only: (B * T,)
+    bool, the frames whose blend keeps the spatial branch alone. Each depth
+    runs the spatial block on ``context``, then (span
+    ``cd360.unet.time_attn``) the temporal block on the tokens plus the
+    frame-position embedding, with each clip's first-frame context as its
+    time context, and blends the two."""
+    bt, h, w, c = x.shape
+    b = bt // frames
+    x_in = x
+    x = linear(p["proj_in"], group_norm(p["norm"], x).reshape(bt, h * w, c))
+    frame = torch.arange(frames, device=x.device).repeat(b)
+    tpe = p["time_pos_embed"]
+    emb = linear(tpe["l2"], silu(linear(tpe["l1"], timestep_embedding(frame, c))))
+    emb = emb.to(x.dtype)[:, None, :]
+    alpha = mix_alpha(p["mix_factor"], image_only)
+    first = context[::frames]
+    for d in range(cfg.depth):
+        x, _ = transformer_block_apply(p["blocks"][d], x, context, cfg, d)
+        with span("cd360.unet.time_attn"):
+            k, v = context_kv(p["time_stack"][d]["attn2"], first)
+            kv = (k.repeat_interleave(h * w, dim=0), v.repeat_interleave(h * w, dim=0))
+            xt = video_transformer_block_apply(p["time_stack"][d], x + emb, kv, cfg, frames)
+            x = blend(alpha, x, xt)
+    return linear(p["proj_out"], x).reshape(bt, h, w, c) + x_in

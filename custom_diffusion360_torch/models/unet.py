@@ -11,6 +11,14 @@ embedding (the JAX package's stop-gradient ``_Stream.both``). Under the x3
 guider the cached steps run the layers before the first attention on the
 unique CFG copies only (``prefix_dedupe``). Under a profiler each layer
 runs inside a span named by its kind (``LAYER_SPANS``).
+
+Under a ``VideoUNetConfig`` the spec is Stable Video Diffusion's VideoUNet
+(sgm ``video_model.py``): the batch holds clips of ``num_video_frames`` frames,
+each res block is a VideoResBlock (the spatial block, then a res block
+over the frames with (k, 1, 1) convolutions and GroupNorm over the whole
+clip, blended with it) and each transformer a SpatialVideoTransformer
+(models/transformer.py). There are no pose blocks. The temporal halves run
+inside the spans ``cd360.unet.time_res`` and ``cd360.unet.time_attn``.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ from .nn import (
     Init,
     conv2d,
     conv2d_init,
+    conv_time,
+    conv_time_init,
     group_norm_init,
     group_norm_silu,
     linear,
@@ -37,13 +47,23 @@ from .nn import (
 )
 from .transformer import (
     TransformerConfig,
+    blend,
     context_kv,
     init_spatial_transformer,
+    init_spatial_video_transformer,
+    mix_alpha,
     spatial_transformer_apply,
+    spatial_video_transformer_apply,
 )
+
+# svd.yaml's VideoUNet: each blend's mix_factor starts at merge_factor; the
+# temporal convolutions are (VIDEO_KERNEL, 1, 1)
+MERGE_FACTOR = 0.5
+VIDEO_KERNEL = 3
 
 # the span of each kind of layer of the spec (utils/trace.py)
 LAYER_SPANS = {kind: f"cd360.unet.{kind}" for kind in ("conv_in", "res", "down", "up", "attn")}
+LAYER_SPANS.update(vres=LAYER_SPANS["res"], vattn=LAYER_SPANS["attn"])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,10 +114,20 @@ class UNetConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class VideoUNetConfig(UNetConfig):
+    """Stable Video Diffusion's VideoUNet: the same widths and spec walk
+    with the video layer kinds; no pose blocks."""
+
+    image_cross_blocks: Tuple[int, ...] = ()
+
+
 def build_unet_spec(cfg: UNetConfig):
     """(input_blocks, middle_block, output_blocks, num_transformers); each
     block a list of layer specs ("conv_in", in, out), ("res", in, out),
-    ("attn", ch, depth, attn_id), ("down", ch), ("up", ch)."""
+    ("attn", ch, depth, attn_id), ("down", ch), ("up", ch); a video network
+    has ("vres", in, out) and ("vattn", ch, depth, attn_id) in their place."""
+    res, attn = ("vres", "vattn") if isinstance(cfg, VideoUNetConfig) else ("res", "attn")
     input_blocks = [[("conv_in", cfg.in_channels, cfg.model_channels)]]
     input_chans = [cfg.model_channels]
     ch = cfg.model_channels
@@ -105,10 +135,10 @@ def build_unet_spec(cfg: UNetConfig):
     attn_id = 0
     for level, mult in enumerate(cfg.channel_mult):
         for _ in range(cfg.num_res_blocks):
-            layers = [("res", ch, mult * cfg.model_channels)]
+            layers = [(res, ch, mult * cfg.model_channels)]
             ch = mult * cfg.model_channels
             if ds in cfg.attention_resolutions:
-                layers.append(("attn", ch, cfg.transformer_depth[level], attn_id))
+                layers.append((attn, ch, cfg.transformer_depth[level], attn_id))
                 attn_id += 1
             input_blocks.append(layers)
             input_chans.append(ch)
@@ -117,19 +147,19 @@ def build_unet_spec(cfg: UNetConfig):
             input_chans.append(ch)
             ds *= 2
 
-    middle_block = [("res", ch, ch),
-                    ("attn", ch, cfg.transformer_depth[-1], attn_id),
-                    ("res", ch, ch)]
+    middle_block = [(res, ch, ch),
+                    (attn, ch, cfg.transformer_depth[-1], attn_id),
+                    (res, ch, ch)]
     attn_id += 1
 
     output_blocks = []
     for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
         for i in range(cfg.num_res_blocks + 1):
             ich = input_chans.pop()
-            layers = [("res", ch + ich, cfg.model_channels * mult)]
+            layers = [(res, ch + ich, cfg.model_channels * mult)]
             ch = cfg.model_channels * mult
             if ds in cfg.attention_resolutions:
-                layers.append(("attn", ch, cfg.transformer_depth[level], attn_id))
+                layers.append((attn, ch, cfg.transformer_depth[level], attn_id))
                 attn_id += 1
             if level and i == cfg.num_res_blocks:
                 layers.append(("up", ch))
@@ -187,15 +217,55 @@ def _resblock_apply(p, x, emb):
     return skip + h
 
 
+def _init_video_resblock(init: Init, in_ch, out_ch, emb_dim):
+    """VideoResBlock: the spatial res block, its ``time_stack`` (a res block
+    over the frames, identity skip) and the blend's ``mix_factor``."""
+    k = VIDEO_KERNEL
+    p = _init_resblock(init, in_ch, out_ch, emb_dim)
+    p["time_stack"] = {
+        "norm_in": group_norm_init(init, out_ch),
+        "conv_in": conv_time_init(init, out_ch, out_ch, k),
+        "emb": linear_init(init, emb_dim, out_ch),
+        "norm_out": group_norm_init(init, out_ch),
+        "conv_out": conv_time_init(init, out_ch, out_ch, k, zero=True),
+    }
+    p["mix_factor"] = init.full((1,), MERGE_FACTOR)
+    return p
+
+
+def _video_resblock_apply(p, x, emb, frames: int, image_only):
+    """x: (B * T, H, W, Cin) frames of B clips; emb: (B * T, E). The
+    spatial block, then (span ``cd360.unet.time_res``) GroupNorm32 over the
+    clip, SiLU, the (k, 1, 1) convolution, each frame's emb projection,
+    again, plus the spatial output, blended with the spatial output."""
+    h = _resblock_apply(p, x, emb)
+    with span("cd360.unet.time_res"):
+        ts = p["time_stack"]
+        bt, hh, ww, c = h.shape
+        clip = (bt // frames, frames * hh * ww, c)
+        z = group_norm_silu(ts["norm_in"], h.reshape(clip), eps=1e-5).reshape(h.shape)
+        z = conv_time(ts["conv_in"], z, frames)
+        z = z + linear(ts["emb"], silu(emb))[:, None, None, :].to(z.dtype)
+        z = group_norm_silu(ts["norm_out"], z.reshape(clip), eps=1e-5).reshape(h.shape)
+        z = h + conv_time(ts["conv_out"], z, frames)
+        return blend(mix_alpha(p["mix_factor"], image_only), h, z)
+
+
 def _init_layer(init: Init, spec, cfg: UNetConfig, emb_dim):
     kind = spec[0]
     if kind == "conv_in":
         return conv2d_init(init, spec[1], spec[2], 3)
     if kind == "res":
         return _init_resblock(init, spec[1], spec[2], emb_dim)
+    if kind == "vres":
+        return _init_video_resblock(init, spec[1], spec[2], emb_dim)
     if kind == "attn":
         _, ch, depth, attn_id = spec
         return init_spatial_transformer(init, ch, cfg.transformer_config(ch, depth, attn_id))
+    if kind == "vattn":
+        _, ch, depth, attn_id = spec
+        return init_spatial_video_transformer(init, ch, cfg.transformer_config(ch, depth, attn_id),
+                                              MERGE_FACTOR)
     if kind in ("down", "up"):
         return conv2d_init(init, spec[1], spec[1], 3)
     raise ValueError(kind)
@@ -265,7 +335,8 @@ def _row_blocks(t, blocks, bb: int):
 def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
                nerf_caches=None, ref_features=None, ctx_kv=None,
                compute_dtype=torch.float32, input_ref=None, sigmas_ref=None,
-               mask_ref=None, draws=None, prefix_dedupe=None):
+               mask_ref=None, draws=None, prefix_dedupe=None, num_video_frames=None,
+               image_only_indicator=None):
     """Denoising forward. x: (B, H, W, Cin) NHWC (already c_in-scaled);
     timesteps: (B,) c_noise; context: (B', 77, context_dim) and y
     (B', adm_in) with the B target rows first, then the B * Nref reference
@@ -281,6 +352,10 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
     ``attn`` then run on one copy per group, and the stream and the skip
     tensors expand back at that layer (after the input blocks if they have
     no attention). Ignored when the reference stream runs.
+    Video network: num_video_frames T, the batch holding B / T clips of T
+    frames each, clip-major, as are context and y; image_only_indicator
+    (B / T, T), nonzero on frames whose blends keep the spatial branch
+    alone (None: none).
     Returns (eps in x.dtype, aux) with aux = dict(fg_mask_list,
     alphas_list, rgb_list, rendered, ref_tokens), ref_tokens {attn_id: {d:
     (B, Nref, hw, C)}} the reference stream's tokens at the pose blocks."""
@@ -305,6 +380,12 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
     nerf_draws = None if draws is None else draws.child("nerf")
 
     inb_spec, mid_spec, outb_spec, _ = build_unet_spec(cfg)
+    frames = image_only = None
+    if isinstance(cfg, VideoUNetConfig):
+        frames = int(num_video_frames)
+        image_only = (torch.zeros((b,), dtype=torch.bool, device=x.device)
+                      if image_only_indicator is None
+                      else image_only_indicator.reshape(b).to(x.device).bool())
     h = x.to(compute_dtype)
     fg_mask_list, alphas_list, rgb_list, rendered, ref_tokens = [], [], [], {}, {}
 
@@ -344,6 +425,13 @@ def unet_apply(params, cfg: UNetConfig, x, timesteps, context, y, *, cams=None,
             return both(lambda t, _: conv2d(lp, t), h, hr)
         if kind == "res":
             return both(lambda t, e: _resblock_apply(lp, t, e), h, hr)
+        if kind == "vres":
+            return _video_resblock_apply(lp, h, emb, frames, image_only), hr
+        if kind == "vattn":
+            _, ch, depth, attn_id = spec
+            return spatial_video_transformer_apply(
+                lp, h, context, cfg.transformer_config(ch, depth, attn_id), frames,
+                image_only), hr
         if kind == "down":
             return both(lambda t, _: conv2d(lp, t, stride=2, padding=((1, 1), (1, 1))), h, hr)
         if kind == "up":

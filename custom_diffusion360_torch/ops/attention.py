@@ -11,7 +11,8 @@ autoencoder) take the plain f32 path, as on the TPU (ops/attention.py:54-90
 there), and on the CPU the kernel wrapper runs its own plain version. The
 TPU's split between a whole-KV kernel (m <= 4096) and the library flash
 kernel (longer KV) has no counterpart: the Hopper kernel streams KV at any
-length.
+length. Under a profiler the plain path runs inside the span
+``cd360.op.attention_plain``.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.trace import span
 from .block_attention import block_attention, block_attention_bnhd, block_attention_qkv_fused
 
 KERNEL_MIN_KV = 128  # m above this goes to the kernel wrapper
@@ -58,7 +60,8 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale
         )
         return out.transpose(1, 2)
-    return _plain_attention(q, k, v, scale)
+    with span("cd360.op.attention_plain"):
+        return _plain_attention(q, k, v, scale)
 
 
 def dot_product_attention_qkv(qkv, n_heads: int, scale: Optional[float] = None):
