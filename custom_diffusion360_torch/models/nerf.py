@@ -167,6 +167,9 @@ def raymarch(cams: Cameras, resolution: int, cfg: NerfConfig, prev_weights=None,
     ``draws`` (training) draws the coin that takes stratified lengths
     instead of importance ones with probability 1 - imp_sampling_percent,
     and with cfg.stratified also jitters the patch rays and the lengths.
+    With a previous block's weights both length sets are computed and the
+    coin selects between them on the device, so the draws are taken in one
+    order whatever the coin: ray_x, ray_y, coin, strat, imp.
     Returns dict(rays (B, N+1, hw, 6), ray_points (B, hw, S, 3), dists
     (B, hw, S), ray_points_uniform, dists_uniform (or None)), all without
     gradient."""
@@ -183,9 +186,14 @@ def raymarch(cams: Cameras, resolution: int, cfg: NerfConfig, prev_weights=None,
 
     if prev_weights is None or cfg.imp_sampling_percent <= 0:
         lengths, dists = stratified()
-    elif draws is not None and bool(draws.uniform("coin", (), dev)
-                                    < 1.0 - cfg.imp_sampling_percent):
-        lengths, dists = stratified()
+    elif draws is not None:
+        # both length sets, selected on the device by the coin (as the JAX
+        # package's jnp.where): no host read, and the draws' order is fixed
+        take_strat = draws.uniform("coin", (), dev) < 1.0 - cfg.imp_sampling_percent
+        strat_lengths, strat_dists = stratified()
+        imp_lengths, imp_dists = _importance_lengths(cfg, prev_weights, num_rays, jitter)
+        lengths = torch.where(take_strat, strat_lengths, imp_lengths)
+        dists = torch.where(take_strat, strat_dists, imp_dists)
     else:
         lengths, dists = _importance_lengths(cfg, prev_weights, num_rays, jitter)
     target_rays = rays[:, 0]
@@ -547,7 +555,11 @@ def nerfsd_apply(params, cams: Cameras, xref, cfg: NerfConfig, prev_weights=None
             args = (points[:, sl], geo_ray[:, :, sl],
                     None if logit_ray is None else logit_ray[:, :, sl], sigma_only)
             if torch.is_grad_enabled():
-                outs.append(checkpoint(run, *args, use_reentrant=False))
+                # no RNG state to keep: the encoding draws nothing (its draws
+                # are taken by raymarch, outside the chunks), and stashing the
+                # CUDA generator's state could not be captured in a CUDA graph
+                outs.append(checkpoint(run, *args, use_reentrant=False,
+                                       preserve_rng_state=False))
             else:
                 outs.append(run(*args))
         return torch.cat(outs, dim=1)

@@ -11,6 +11,7 @@ take; on CPU tensors they are the plain PyTorch forms below.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -239,9 +240,12 @@ def trunc_exp(x):
     return _TruncExp.apply(x)
 
 
+@functools.lru_cache(maxsize=64)
 def nearest_indices(src: int, dst: int, device):
     """Source index of each of ``dst`` outputs, F.interpolate's nearest
-    rule as the JAX package computes it: floor(o * f32(src / dst))."""
+    rule as the JAX package computes it: floor(o * f32(src / dst)). Made
+    once a (src, dst, device): the copy to the device cannot be held in a
+    CUDA-graph capture of the training step (train/train_graphs.py)."""
     return torch.floor(torch.arange(dst, dtype=torch.float32) * (src / dst)).long().to(device)
 
 

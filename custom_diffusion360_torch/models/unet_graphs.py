@@ -101,7 +101,8 @@ def _static(tree):
     if isinstance(tree, dict):
         return {k: _static(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_static(v) for v in tree)
+        items = [_static(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
     if isinstance(tree, torch.Tensor):
         return torch.empty_strided(tree.shape, tree.stride(), dtype=tree.dtype,
                                    device=tree.device).copy_(tree)

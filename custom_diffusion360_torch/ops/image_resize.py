@@ -16,6 +16,8 @@ from the JAX package's.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -54,12 +56,18 @@ def resize_weights(src: int, dst: int, method: str, device=None):
     return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
+# the weights a resize reads, made once a (src, dst, method, device): building
+# them copies two scalars from the host, which a CUDA-graph capture of the
+# training step (train/train_graphs.py) cannot hold
+_weights = functools.lru_cache(maxsize=64)(resize_weights)
+
+
 def resize_images(x, size, method: str):
     """(B, H, W, C) -> (B, *size, C) float32; ``size`` (h, w) or an int."""
     h, w = (size, size) if isinstance(size, int) else size
     x = x.float()
     if x.shape[1] != h:
-        x = torch.einsum("bhwc,hH->bHwc", x, resize_weights(x.shape[1], h, method, x.device))
+        x = torch.einsum("bhwc,hH->bHwc", x, _weights(x.shape[1], h, method, x.device))
     if x.shape[2] != w:
-        x = torch.einsum("bhwc,wW->bhWc", x, resize_weights(x.shape[2], w, method, x.device))
+        x = torch.einsum("bhwc,wW->bhWc", x, _weights(x.shape[2], w, method, x.device))
     return x

@@ -11,6 +11,12 @@ result is the same bit for bit from run to run).
 with respect to the maps is W^T g, the grid's is zero (the FeatureNeRF
 caller stops it, as the reference detaches the projected points). Plain
 versions: ops/grid_sample.grid_sample_2d and its autograd.
+
+Both CUDA calls take an ``out=`` buffer to write into, and hand the call to
+``capture_split`` while one is set: the piecewise CUDA-graph capture of the
+training step (``train/train_graphs.py``) ends a graph there, so that every
+bilinear launch stays eager, inside its span and counted, between the
+replayed segments.
 """
 from __future__ import annotations
 
@@ -38,11 +44,15 @@ def _vec(c, t):
     return int((c * t.element_size()) % 16 == 0 and t.data_ptr() % 16 == 0)
 
 
-def _sample_forward(feats, grid):
+def _sample_forward(feats, grid, out=None):
     """The forward launch: CUDA tensors launch the kernel inside the span
-    ``cd360.op.bilinear``, CPU tensors run ``grid_sample_2d``."""
+    ``cd360.op.bilinear`` (into ``out`` when given), CPU tensors run
+    ``grid_sample_2d``. While ``capture_split`` is set, a CUDA call goes to
+    it instead."""
     if feats.device.type == "cpu":
         return grid_sample_2d(feats, grid)
+    if capture_split is not None:
+        return capture_split(_sample_forward, feats, grid)
     m, h, w, c = feats.shape
     _check(feats.shape, grid, feats.device)
     if feats.dtype not in _DTYPES:
@@ -52,7 +62,8 @@ def _sample_forward(feats, grid):
     with span("cd360.op.bilinear"):
         grid = grid.to(torch.float32).contiguous()
         p = grid.shape[1]
-        out = torch.empty((m, p, c), dtype=feats.dtype, device=feats.device)
+        if out is None:
+            out = torch.empty((m, p, c), dtype=feats.dtype, device=feats.device)
         fn = _build.load("bilinear_sample")
         with torch.cuda.device(feats.device):
             stream = torch.cuda.current_stream(feats.device).cuda_stream
@@ -155,9 +166,11 @@ def bilinear_sample_bwd_split_plain(g, grid, feats_shape, band_pix: int, splits:
     return out.reshape(m, h, w, c)
 
 
-def bilinear_sample_bwd(g, grid, feats_shape, dtype):
+def bilinear_sample_bwd(g, grid, feats_shape, dtype, out=None):
     """dFeats = W^T g for the cotangent g (M, P, C) of ``bilinear_sample`` at
-    ``grid`` (M, P, 2) -> (M, H, W, C) in ``dtype``. CUDA tensors launch
+    ``grid`` (M, P, 2) -> (M, H, W, C) in ``dtype`` (written into ``out``
+    when given; while ``capture_split`` is set, a CUDA call goes to it
+    instead). CUDA tensors launch
     ``csrc/bilinear_sample_bwd.cu``: each block owns its part of the output
     in shared memory, no atomics, the same bits from run to run; the kernel
     writes ``dtype`` itself (no zero fill, no cast), and when ``bwd_plan``
@@ -169,6 +182,8 @@ def bilinear_sample_bwd(g, grid, feats_shape, dtype):
     at each shape is in ``bwd_plans_launched``."""
     if g.device.type == "cpu":
         return bilinear_sample_bwd_plain(g, grid, feats_shape, dtype)
+    if capture_split is not None:
+        return capture_split(bilinear_sample_bwd, g, grid, feats_shape, dtype)
     m, h, w, c = feats_shape
     _check(feats_shape, grid, g.device)
     if g.dtype not in _DTYPES or dtype not in _DTYPES:
@@ -183,7 +198,7 @@ def bilinear_sample_bwd(g, grid, feats_shape, dtype):
         p = grid.shape[1]
         band_pix, splits = bwd_plan(m, h, w, c, p, g.element_size(),
                                     _build.num_sms(g.get_device()))
-        out = bwd_launch(g, grid, feats_shape, dtype, band_pix, splits)
+        out = bwd_launch(g, grid, feats_shape, dtype, band_pix, splits, out)
     bilinear_sample_bwd.launches_by_shape[(m, h, w, c, p, _DTYPE_NAMES[g.dtype])] += 1
     bwd_plans_launched[(m, h, w, c, p, _DTYPE_NAMES[g.dtype])] = (band_pix, splits)
     return out
@@ -192,15 +207,21 @@ def bilinear_sample_bwd(g, grid, feats_shape, dtype):
 # (pixels per band, point splits) of the last backward launch at each shape
 bwd_plans_launched = {}
 
+# while a piecewise CUDA-graph capture of the training step runs
+# (train/train_graphs.py): called as capture_split(wrapper, *args) in place
+# of a CUDA call of ``_sample_forward`` or ``bilinear_sample_bwd``
+capture_split = None
 
-def bwd_launch(g, grid, feats_shape, dtype, band_pix: int, splits: int):
+
+def bwd_launch(g, grid, feats_shape, dtype, band_pix: int, splits: int, out=None):
     """Launch ``csrc/bilinear_sample_bwd.cu`` with the given bands and
     splits on contiguous CUDA g and f32 grid (``bilinear_sample_bwd``
-    checks and plans; a timing script may pick its own plan). Counts
-    nothing."""
+    checks and plans; a timing script may pick its own plan), into ``out``
+    when given. Counts nothing."""
     m, h, w, c = feats_shape
     index = g.get_device()
-    out = torch.empty((m, h, w, c), dtype=dtype, device=g.device)
+    if out is None:
+        out = torch.empty((m, h, w, c), dtype=dtype, device=g.device)
     ws = None
     if splits > 1:
         ws = torch.empty((splits, m, h, w, c), dtype=torch.float32, device=g.device)

@@ -25,7 +25,7 @@ The options follow the JAX optimizer chain (``make_optimizer``):
   AdamW update (weight decay included) and clears it. The parameters do
   not move in between. ``TrainState.step`` counts calls;
 * ``lr_schedule``: each group's lr is base x schedule(n) for its n-th
-  applied update (n from 0), set just before ``optimizer.step()``.
+  applied update (n from 0), set at the start of the call that applies it.
 
 Data parallelism (``Trainer(data_group=...)``, a process group, e.g.
 ``torch.distributed.group.WORLD``): right after the backward the trainable
@@ -42,6 +42,11 @@ Under a profiler a step runs inside the span ``cd360.train.step``, its
 phases inside ``cd360.train.forward`` (the loss), ``cd360.train.backward``
 and ``cd360.train.update`` (the all-reduce, norms, accumulation, clipping
 and ``optimizer.step()``).
+
+On a CUDA card without data parallelism or accumulation
+(``train_graphs.engages``) the AdamW is built capturable, each group's lr a
+0-d tensor on the card, and the steps after the first replay CUDA graphs of
+the whole step (``train/train_graphs.py``, ``Trainer.graphs``).
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from ..utils.trace import span, spanned
+from .train_graphs import TrainGraphs, engages
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +149,7 @@ class Trainer:
         self.cfg = cfg
         self.data_group = data_group
         self.labels = None
+        self.graphs = TrainGraphs()
 
     def init_state(self, params) -> TrainState:
         cfg = self.cfg
@@ -159,10 +166,17 @@ class Trainer:
             if lab != "frozen":
                 groups[lab].append(leaf)
         lrs = {"train": cfg.lr, "lowlr": cfg.lr * cfg.multiplier}
+        dev = self.engine.device
+        capturable = engages(dev, self.data_group, cfg.accumulate_grad_batches)
+
+        def lr(value):  # a capturable AdamW reads a tensor lr, which a replay sees change
+            return torch.tensor(value, dtype=torch.float32, device=dev) if capturable else value
+
         opt = torch.optim.AdamW(
-            [{"params": ps, "lr": lrs[lab], "base_lr": lrs[lab], "label": lab}
+            [{"params": ps, "lr": lr(lrs[lab]), "base_lr": lrs[lab], "label": lab}
              for lab, ps in groups.items() if ps],
             betas=(cfg.b1, cfg.b2), eps=cfg.eps, weight_decay=cfg.weight_decay,
+            capturable=capturable,
         )
         return TrainState(params, opt, 0, {"mini_step": 0, "applied": 0, "grads": None})
 
@@ -175,7 +189,30 @@ class Trainer:
         """Forward, backward and, on an update call, one AdamW update of the
         trainable leaves (in place). Returns (the next state, metrics): the
         loss terms and ``grad_norm``, the global L2 norm of this call's
-        trainable gradients, as detached tensors."""
+        trainable gradients, as detached tensors. On the card it runs
+        through ``self.graphs``."""
+        self._set_lrs(state)
+        if self.engine.device.type != "cuda":
+            return self._step(state, batch, draws)
+        return self.graphs.step(self, state, batch, draws)
+
+    def _set_lrs(self, state: TrainState):
+        """Each group's lr for the update that this call may apply: written
+        into its tensor where it has one on its parameters' device."""
+        sched = self.cfg.lr_schedule
+        for group in state.optimizer.param_groups:
+            value = group["base_lr"] * (
+                1.0 if sched is None else float(sched(state.accum["applied"])))
+            lr, dev = group["lr"], group["params"][0].device
+            if isinstance(lr, torch.Tensor) and lr.device == dev:
+                lr.fill_(value)
+            elif group.get("capturable"):  # e.g. a tensor restored onto the host
+                group["lr"] = torch.tensor(value, dtype=torch.float32, device=dev)
+                self.graphs.clear()
+            else:
+                group["lr"] = value
+
+    def _step(self, state: TrainState, batch, draws):
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         with span("cd360.train.forward"):
@@ -230,9 +267,6 @@ class Trainer:
                                     cfg.max_grad_norm / norm)
                 for g in grads:
                     g.mul_(scale.to(g.dtype))
-        for group in opt.param_groups:
-            group["lr"] = group["base_lr"] * (
-                1.0 if cfg.lr_schedule is None else float(cfg.lr_schedule(accum["applied"])))
         opt.step()
         accum.update(mini_step=0, applied=accum["applied"] + 1)
         return state._replace(step=state.step + 1, accum=accum), metrics
