@@ -269,6 +269,11 @@ def view_sharded(group):
         _VIEW_GROUP = prev
 
 
+def view_group():
+    """The active view group; None outside ``view_sharded``."""
+    return _VIEW_GROUP
+
+
 def _view_reduce(x, op="sum"):
     """``x`` reduced over the view group in place (sum or max); the
     identity outside ``view_sharded``."""

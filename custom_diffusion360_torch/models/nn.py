@@ -245,7 +245,7 @@ def nearest_indices(src: int, dst: int, device):
     """Source index of each of ``dst`` outputs, F.interpolate's nearest
     rule as the JAX package computes it: floor(o * f32(src / dst)). Made
     once a (src, dst, device): the copy to the device cannot be held in a
-    CUDA-graph capture of the training step (train/train_graphs.py)."""
+    piecewise CUDA-graph capture (utils/graphs.py)."""
     return torch.floor(torch.arange(dst, dtype=torch.float32) * (src / dst)).long().to(device)
 
 

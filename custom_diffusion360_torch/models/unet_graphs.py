@@ -1,22 +1,18 @@
-"""Piecewise CUDA-graph replay of the cached UNet evaluation.
+"""The cached UNet evaluation replayed as piecewise CUDA graphs
+(``utils/graphs.py``): the policy.
 
 After the render step, ``Engine.sample`` evaluates the same network on the
 same shapes at every step (steps 1-49 of a 50-step Euler image): only the
 latent, the timesteps and the guider's conditioning change. On the card such
 an evaluation is about 2450 small launches, and the host's time to make
 them is most of the step. ``CachedUNetGraphs``, one per ``Engine``,
-captures that evaluation once per shape into CUDA graphs and replays them.
+captures that evaluation once per shape and replays it; the pool is freed
+with the ``Engine``.
 
-The capture is split at the two counted attention wrappers
-(``ops/block_attention.py``: ``attention_fwd``, ``attention_bnhd_fwd``):
-the hand-written attention kernels run eagerly between the replayed
-segments, inside their span ``cd360.op.attention`` and counted as ever,
-reading q/k/v where the previous segment left them and writing into the
-buffer the next segment was captured to read (their ``out=``). Everything
-else of the evaluation is replayed: the norms, the GEMMs, the 77-key text
-cross-attention, the pose blocks' fuse, the resblocks. The segments share
-one memory pool, which the graphs own with their static buffers; so it is
-freed with the ``Engine``.
+Splits: the two counted attention wrappers, ``attention_fwd`` and
+``attention_bnhd_fwd``, and no span. Everything else of the evaluation is
+replayed: the norms, the GEMMs, the 77-key text cross-attention, the pose
+blocks' fuse, the resblocks.
 
 Inputs. A step's (the scaled latent, c_noise, the conditioning tensors) are
 copied into static buffers before each replay, a request's (the text K/V
@@ -31,15 +27,15 @@ that a later replay overwrites. The cached phase's aux holds no tensor.
 
 When. ``engages``: a CUDA device, autograd off, the cached phase, and no
 process group in the call (cfg, view or tensor-parallel). Every other
-evaluation runs the network as it is. A new shape runs once eagerly (so its
-kernels load and its libraries set up outside any capture), is captured at
-its next evaluation, and replays from then on; no capture runs while a
-profiler traces.
+evaluation runs the network as it is. A capture is keyed on the tensors'
+paths, shapes, strides, dtypes and devices of a step's and a request's
+inputs, the build's settings and ``CD360_ATTN_BNHD``. A new key runs once
+eagerly (so its kernels load and its libraries set up outside any capture),
+is captured at its next evaluation, and replays from then on; no capture
+runs while a profiler traces.
 
 ``evaluations`` counts the cached-phase evaluations on the card by how they
-ran: "capture", "replay", "eager". A replay also credits the op wrappers'
-``launches_by_shape`` with the launches that its segments captured, so those
-counters still count every launch of the program.
+ran: "capture", "replay", "eager".
 """
 from __future__ import annotations
 
@@ -48,19 +44,14 @@ from collections import Counter
 
 import torch
 
-from ..ops import block_attention, conv3x3, norms, onehot_sample
+from ..ops import block_attention
 from ..parallel import tp
+from ..utils.graphs import Segments, copy_into, static, tensors
 from . import nerf
 from .transformer import fuse_attention_params
 
 evaluations = Counter()  # "capture" / "replay" / "eager" -> cached-phase evaluations on the card
-
-
-def _counted():
-    """The op wrappers that count their launches by shape."""
-    return (block_attention.attention_fwd, block_attention.attention_bnhd_fwd,
-            norms.layer_norm_fused, norms.group_norm_fused, conv3x3.conv3x3_fwd,
-            onehot_sample.bilinear_sample, onehot_sample.bilinear_sample_bwd)
+SPLITS = frozenset({block_attention.attention_fwd, block_attention.attention_bnhd_fwd})
 
 
 def engages(device, nerf_caches, group=None) -> bool:
@@ -70,123 +61,27 @@ def engages(device, nerf_caches, group=None) -> bool:
     a ``tp.tensor_parallel`` or ``nerf.view_sharded`` context."""
     return (torch.device(device).type == "cuda" and not torch.is_grad_enabled()
             and nerf_caches is not None and group is None
-            and tp._MODEL_GROUP is None and nerf._VIEW_GROUP is None)
-
-
-def _flat(tree, path=()):
-    """(path, tensor) of every tensor leaf of a tree of dicts, lists and
-    tuples, in order."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _flat(v, path + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _flat(v, path + (i,))
-    elif isinstance(tree, torch.Tensor):
-        yield path, tree
+            and tp.model_group() is None and nerf.view_group() is None)
 
 
 def _spec(tree) -> tuple:
-    """What a capture is keyed on: each leaf's path, shape, strides, dtype
-    and device."""
-    return tuple((p, tuple(t.shape), t.stride(), t.dtype, t.device) for p, t in _flat(tree))
+    """What a capture is keyed on: each tensor leaf's path, shape, strides,
+    dtype and device."""
+    return tuple((p, tuple(t.shape), t.stride(), t.dtype, t.device) for p, t in tensors(tree))
 
 
 def _addresses(tree) -> tuple:
-    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for _, t in _flat(tree))
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for _, t in tensors(tree))
 
 
-def _static(tree):
-    """A copy of a tree whose tensors have the same shapes and strides."""
-    if isinstance(tree, dict):
-        return {k: _static(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        items = [_static(v) for v in tree]
-        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
-    if isinstance(tree, torch.Tensor):
-        return torch.empty_strided(tree.shape, tree.stride(), dtype=tree.dtype,
-                                   device=tree.device).copy_(tree)
-    return tree
-
-
-def _copy_into(static, tree):
-    for (_, dst), (_, src) in zip(_flat(static), _flat(tree)):
-        dst.copy_(src)
-
-
-class _Graphs:
-    """The graphs of one shape: the segments, the eager attention calls
-    between them, the static inputs (a step's, a request's) and the output
-    in graph memory."""
+class _Graphs(Segments):
+    """The graphs of one key: the static inputs (a step's, a request's), the
+    parameters' addresses at capture and the output in graph memory."""
 
     def __init__(self, step, request, params):
-        self.step, self.request, self.params = _static(step), _static(request), params
-        self.segments, self.calls, self.credit = [], [], {}
-        self.pool = self.out = self.aux = None
-        self._graph = self._before = None
-
-    def capture(self, build):
-        """Capture ``build(*request)(*step)``, a segment at each attention
-        call, replaying each segment once as it ends so that the attention
-        between them reads real values: this call's evaluation."""
-        network = build(*self.request)
-        torch.cuda.synchronize()
-        self.pool = torch.cuda.graph_pool_handle()
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            try:
-                self._begin()
-                block_attention.capture_split = self._split
-                self.out, self.aux = network(*self.step)
-                block_attention.capture_split = None
-                self._end()
-            except BaseException:
-                block_attention.capture_split = None
-                if self._graph is not None:
-                    try:
-                        self._graph.capture_end()
-                    except RuntimeError:
-                        pass
-                raise
-        torch.cuda.current_stream().wait_stream(stream)
-
-    def _begin(self):
-        self._before = {fn: Counter(fn.launches_by_shape) for fn in _counted()}
-        self._graph = torch.cuda.CUDAGraph()
-        self._graph.capture_begin(pool=self.pool)
-
-    def _end(self):
-        graph, self._graph = self._graph, None
-        graph.capture_end()
-        for fn, before in self._before.items():
-            launched = Counter(fn.launches_by_shape) - before
-            if launched:
-                self.credit.setdefault(fn, Counter()).update(launched)
-        graph.replay()
-        self.segments.append(graph)
-
-    def _split(self, wrapper, *args):
-        """``block_attention.capture_split``: end the segment, launch the
-        attention eagerly, begin the next segment."""
-        self._end()
-        block_attention.capture_split = None
-        try:
-            out = wrapper(*args)
-        finally:
-            block_attention.capture_split = self._split
-        self.calls.append((wrapper, args, out))
-        self._begin()
-        return out
-
-    def replay(self):
-        for i, graph in enumerate(self.segments):
-            graph.replay()
-            if i < len(self.calls):
-                wrapper, args, out = self.calls[i]
-                wrapper(*args, out=out)
-        for fn, launched in self.credit.items():
-            fn.launches_by_shape.update(launched)
+        super().__init__(SPLITS)
+        self.step, self.request, self.params = static(step), static(request), params
+        self.out = self.aux = None
 
 
 class CachedUNetGraphs:
@@ -221,7 +116,7 @@ class CachedUNetGraphs:
                 del self._graphs[key]
                 graphs = None
             else:
-                _copy_into(graphs.request, net.request)
+                copy_into(graphs.request, net.request)
                 net.bound = graphs
         if graphs is None:
             if key not in self._warm or torch.autograd._profiler_enabled():
@@ -229,11 +124,12 @@ class CachedUNetGraphs:
                 evaluations["eager"] += 1
                 return net.eager(x, t, cond)
             graphs = _Graphs(step, net.request, net.addresses())
-            graphs.capture(net.build)
+            network = net.build(*graphs.request)
+            graphs.out, graphs.aux = graphs.capture(lambda: network(*graphs.step))
             self._graphs[key] = net.bound = graphs
             evaluations["capture"] += 1
         else:
-            _copy_into(graphs.step, step)
+            copy_into(graphs.step, step)
             graphs.replay()
             evaluations["replay"] += 1
         return graphs.out.clone(), graphs.aux

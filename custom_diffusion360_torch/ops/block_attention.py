@@ -20,11 +20,10 @@ same arithmetic in plain PyTorch).
 it launches the kernel (or raises on what the kernel does not take); for
 CPU tensors it runs the plain version ``attention_plain``.
 
-Both wrappers take an ``out=`` buffer to write into, and both hand their
-launch to ``capture_split`` while one is set: the piecewise CUDA-graph
-capture of the cached UNet evaluation (``models/unet_graphs.py``) ends a
-graph there, so that every attention launch stays eager, inside its span
-and counted, between the replayed segments.
+Both wrappers take an ``out=`` buffer to write into, and both are split
+points of a piecewise capture (``utils/graphs.py``): a capture that splits
+there keeps every attention launch eager, inside its span and counted,
+between the replayed graphs.
 
 ``block_attention`` and ``block_attention_qkv_fused`` are autograd
 Functions around it: the forward is ``attention_fwd``, the backward the
@@ -36,17 +35,18 @@ block_attention._bwd); the TPU package has no backward kernel either.
 kernel that never compiled on the TPU): the kernel reads the (b, h, n, d)
 views of that storage through their strides and writes its output into
 (b, n, h, d) storage, so neither side copies. Its launches are counted
-apart, in ``attention_bnhd_fwd``.
+apart, in ``attention_bnhd_fwd``; its backward is ``attention_bwd_plain`` on
+the (b, h, *, d) views.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from collections import Counter
 from typing import Optional
 
 import torch
 
+from ..utils.graphs import counted, split_point
 from ..utils.trace import span
 from . import _build
 
@@ -217,10 +217,6 @@ def _launch(q, k, v, scale: float, kv_len: Optional[int], out=None):
 # the key splits that the last launch at each (b, h, n, m, d) ran with
 splits_launched = {}
 
-# while a piecewise CUDA-graph capture runs (models/unet_graphs.py): called
-# as capture_split(wrapper, q, k, v, scale, kv_len) in place of a launch
-capture_split = None
-
 
 def layout_of(q):
     """How a (b, h, n, d) operand lies in memory, from its strides: "packed"
@@ -236,6 +232,8 @@ def layout_of(q):
     return "strided"
 
 
+@counted
+@split_point
 def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None, out=None):
     """Non-causal attention. q: (b, h, n, d); k, v: (b, h, m, d), any
     strides with a unit last stride -> (b, h, n, d), written into ``out``
@@ -247,13 +245,11 @@ def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None, out=None)
     transpose back for free, inside the span ``cd360.op.attention``. CPU
     tensors run ``attention_plain``. Launches are counted by shape and q's
     layout (b, h, n, m, d, kv_len, ``layout_of(q)``) in
-    ``attention_fwd.launches_by_shape``. While ``capture_split`` is set,
-    the call goes to it.
+    ``attention_fwd.launches_by_shape``. A split point of a piecewise
+    capture.
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, kv_len)
-    if capture_split is not None:
-        return capture_split(attention_fwd, q, k, v, scale, kv_len)
     with span("cd360.op.attention"):
         out = _launch(q, k, v, scale, kv_len, out)
     b, h, n, d = q.shape
@@ -263,22 +259,19 @@ def attention_fwd(q, k, v, scale: float, kv_len: Optional[int] = None, out=None)
     return out
 
 
-attention_fwd.launches_by_shape = Counter()
-
-
+@counted
+@split_point
 def attention_bnhd_fwd(q, k, v, scale: float, kv_len: Optional[int] = None, out=None):
     """Non-causal attention on the (b, n, h, d) layout: q (b, n, h, d), k, v
     (b, m, h, d) -> contiguous (b, n, h, d), or ``out`` of that shape.
     CUDA: the attention kernel on the (b, h, *, d) views, no transpose
     copies, inside the span ``cd360.op.attention``; launches counted by
     shape (b, n, h, m, d, kv_len) in ``attention_bnhd_fwd.launches_by_shape``;
-    while ``capture_split`` is set, the call goes to it. CPU:
-    ``attention_plain`` on the transposed views."""
+    a split point of a piecewise capture. CPU: ``attention_plain`` on the
+    transposed views."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cpu":
         return attention_plain(qt, kt, vt, scale, kv_len).transpose(1, 2)
-    if capture_split is not None:
-        return capture_split(attention_bnhd_fwd, q, k, v, scale, kv_len)
     with span("cd360.op.attention"):
         out = _launch(qt, kt, vt, scale, kv_len,
                       None if out is None else out.transpose(1, 2)).transpose(1, 2)
@@ -286,9 +279,6 @@ def attention_bnhd_fwd(q, k, v, scale: float, kv_len: Optional[int] = None, out=
     m = k.shape[1]
     attention_bnhd_fwd.launches_by_shape[(b, n, h, m, d, m if kv_len is None else int(kv_len))] += 1
     return out
-
-
-attention_bnhd_fwd.launches_by_shape = Counter()
 
 
 def attention_bwd_plain(q, k, v, g, scale: float, kv_len: Optional[int] = None):
@@ -312,15 +302,23 @@ def attention_bwd_plain(q, k, v, g, scale: float, kv_len: Optional[int] = None):
 
 
 class _Attention(torch.autograd.Function):
+    """``fwd``, ``attention_fwd`` or ``attention_bnhd_fwd``; the backward is
+    ``attention_bwd_plain``, on the (b, h, *, d) views for the latter."""
+
     @staticmethod
-    def forward(ctx, q, k, v, scale, kv_len):
+    def forward(ctx, fwd, q, k, v, scale, kv_len):
         ctx.save_for_backward(q, k, v)
-        ctx.cfg = (scale, kv_len)
-        return attention_fwd(q, k, v, scale, kv_len)
+        ctx.cfg = (fwd is attention_bnhd_fwd, scale, kv_len)
+        return fwd(q, k, v, scale, kv_len)
 
     @staticmethod
     def backward(ctx, g):
-        return (*attention_bwd_plain(*ctx.saved_tensors, g, *ctx.cfg), None, None)
+        bnhd, scale, kv_len = ctx.cfg
+        operands = (*ctx.saved_tensors, g)
+        if bnhd:
+            operands = [t.transpose(1, 2) for t in operands]
+        grads = attention_bwd_plain(*operands, scale, kv_len)
+        return (None, *(t.transpose(1, 2) if bnhd else t for t in grads), None, None)
 
 
 class _AttentionQKV(torch.autograd.Function):
@@ -337,37 +335,6 @@ class _AttentionQKV(torch.autograd.Function):
         return torch.stack(grads, dim=1), None
 
 
-def attention_bwd_bnhd_plain(q, k, v, g, scale: float, kv_len: Optional[int] = None):
-    """(dq, dk, dv) of the (b, n, h, d)-layout attention for the output
-    cotangent g, recomputed in f32 (JAX: block_attention._bwd_bnhd)."""
-    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
-    s = torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale
-    if kv_len is not None and kv_len < k.shape[1]:
-        mask = torch.arange(k.shape[1], device=s.device) < kv_len
-        s = torch.where(mask, s, torch.full_like(s, -1e30))
-    p = torch.softmax(s, dim=-1)
-    del s
-    dv = torch.einsum("bhnm,bnhd->bmhd", p, gf)
-    dp = torch.einsum("bnhd,bmhd->bhnm", gf, vf)
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    del p, dp
-    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
-    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-
-
-class _AttentionBNHD(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale, kv_len):
-        ctx.save_for_backward(q, k, v)
-        ctx.cfg = (scale, kv_len)
-        return attention_bnhd_fwd(q, k, v, scale, kv_len)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (*attention_bwd_bnhd_plain(*ctx.saved_tensors, g, *ctx.cfg), None, None)
-
-
 def _needs_grad(*tensors):
     """Whether a gradient can flow to any of ``tensors``: the wrappers skip
     their autograd Functions otherwise (inference mode, no_grad, frozen
@@ -381,7 +348,7 @@ def block_attention(q, k, v, scale: float, kv_len: Optional[int] = None):
     block_attention; its block_q is a TPU tiling knob with no counterpart
     here.)"""
     if _needs_grad(q, k, v):
-        return _Attention.apply(q, k, v, scale, kv_len)
+        return _Attention.apply(attention_fwd, q, k, v, scale, kv_len)
     return attention_fwd(q, k, v, scale, kv_len)
 
 
@@ -401,5 +368,5 @@ def block_attention_bnhd(q, k, v, scale: float, kv_len: Optional[int] = None):
     Differentiable; the backward is the f32 recompute. (JAX:
     block_attention_bnhd; block_q is a TPU tiling knob.)"""
     if _needs_grad(q, k, v):
-        return _AttentionBNHD.apply(q, k, v, scale, kv_len)
+        return _Attention.apply(attention_bnhd_fwd, q, k, v, scale, kv_len)
     return attention_bnhd_fwd(q, k, v, scale, kv_len)

@@ -22,11 +22,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import weakref
-from collections import Counter
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.graphs import counted
 from ..utils.trace import span
 from . import _build
 
@@ -137,6 +137,7 @@ def tap_box_coords(tap: int, chunk: int, c: int, b: int, y0: int, x0: int, n0: i
 _kernel = None  # the loaded ctypes entry point, kept off the per-call path
 
 
+@counted
 def conv3x3_fwd(x, w, bias=None):
     """Forward of :func:`conv3x3_gemm`. CUDA: the kernel (bf16, the shapes
     ``conv3x3_supported`` passes) inside the span ``cd360.op.conv3x3``;
@@ -174,9 +175,6 @@ def conv3x3_fwd(x, w, bias=None):
     _build.check(rc, "conv3x3_fwd")
     conv3x3_fwd.launches_by_shape[(b, h, wd, c, n)] += 1
     return out
-
-
-conv3x3_fwd.launches_by_shape = Counter()
 
 
 class _Conv3x3(torch.autograd.Function):

@@ -57,8 +57,8 @@ def resize_weights(src: int, dst: int, method: str, device=None):
 
 
 # the weights a resize reads, made once a (src, dst, method, device): building
-# them copies two scalars from the host, which a CUDA-graph capture of the
-# training step (train/train_graphs.py) cannot hold
+# them copies two scalars from the host, which a piecewise CUDA-graph capture
+# (utils/graphs.py) cannot hold
 _weights = functools.lru_cache(maxsize=64)(resize_weights)
 
 

@@ -23,12 +23,12 @@ Launches are counted by shape on ``layer_norm_fused`` / ``group_norm_fused``
 """
 from __future__ import annotations
 
-from collections import Counter
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.graphs import counted
 from ..utils.trace import span
 from . import _build
 
@@ -210,6 +210,7 @@ class _GroupNorm(torch.autograd.Function):
         return tuple(out)
 
 
+@counted
 def layer_norm_fused(x, scale, bias, eps: float = 1e-5):
     """LayerNorm over the last axis with f32 statistics. x: (..., C) bf16 or
     f32 (C % 8 == 0 on the card); scale, bias: (C,), both bf16 or both f32.
@@ -220,6 +221,7 @@ def layer_norm_fused(x, scale, bias, eps: float = 1e-5):
     return _ln_forward(x, scale, bias, eps)
 
 
+@counted
 def group_norm_fused(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,
                      act: Optional[str] = None):
     """Per-sample GroupNorm of channels-last x (N, ..., C) over (spatial,
@@ -231,7 +233,3 @@ def group_norm_fused(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,
                                     or bias.requires_grad):
         return _GroupNorm.apply(x, scale, bias, num_groups, eps, act)
     return _gn_forward(x, scale, bias, num_groups, eps, act)
-
-
-layer_norm_fused.launches_by_shape = Counter()
-group_norm_fused.launches_by_shape = Counter()

@@ -12,18 +12,17 @@ with respect to the maps is W^T g, the grid's is zero (the FeatureNeRF
 caller stops it, as the reference detaches the projected points). Plain
 versions: ops/grid_sample.grid_sample_2d and its autograd.
 
-Both CUDA calls take an ``out=`` buffer to write into, and hand the call to
-``capture_split`` while one is set: the piecewise CUDA-graph capture of the
-training step (``train/train_graphs.py``) ends a graph there, so that every
-bilinear launch stays eager, inside its span and counted, between the
-replayed segments.
+Both CUDA calls (``bilinear_sample_fwd``, ``bilinear_sample_bwd``) take an
+``out=`` buffer to write into, and both are split points of a piecewise
+capture (``utils/graphs.py``): a capture that splits there keeps every
+bilinear launch eager, inside its span and counted, between the replayed
+graphs.
 """
 from __future__ import annotations
 
-from collections import Counter
-
 import torch
 
+from ..utils.graphs import counted, split_point
 from ..utils.trace import span
 from . import _build
 from .grid_sample import grid_sample_2d
@@ -44,15 +43,13 @@ def _vec(c, t):
     return int((c * t.element_size()) % 16 == 0 and t.data_ptr() % 16 == 0)
 
 
-def _sample_forward(feats, grid, out=None):
+@split_point
+def bilinear_sample_fwd(feats, grid, out=None):
     """The forward launch: CUDA tensors launch the kernel inside the span
     ``cd360.op.bilinear`` (into ``out`` when given), CPU tensors run
-    ``grid_sample_2d``. While ``capture_split`` is set, a CUDA call goes to
-    it instead."""
+    ``grid_sample_2d``. A split point of a piecewise capture."""
     if feats.device.type == "cpu":
         return grid_sample_2d(feats, grid)
-    if capture_split is not None:
-        return capture_split(_sample_forward, feats, grid)
     m, h, w, c = feats.shape
     _check(feats.shape, grid, feats.device)
     if feats.dtype not in _DTYPES:
@@ -166,11 +163,12 @@ def bilinear_sample_bwd_split_plain(g, grid, feats_shape, band_pix: int, splits:
     return out.reshape(m, h, w, c)
 
 
+@counted
+@split_point
 def bilinear_sample_bwd(g, grid, feats_shape, dtype, out=None):
     """dFeats = W^T g for the cotangent g (M, P, C) of ``bilinear_sample`` at
     ``grid`` (M, P, 2) -> (M, H, W, C) in ``dtype`` (written into ``out``
-    when given; while ``capture_split`` is set, a CUDA call goes to it
-    instead). CUDA tensors launch
+    when given; a split point of a piecewise capture). CUDA tensors launch
     ``csrc/bilinear_sample_bwd.cu``: each block owns its part of the output
     in shared memory, no atomics, the same bits from run to run; the kernel
     writes ``dtype`` itself (no zero fill, no cast), and when ``bwd_plan``
@@ -182,8 +180,6 @@ def bilinear_sample_bwd(g, grid, feats_shape, dtype, out=None):
     at each shape is in ``bwd_plans_launched``."""
     if g.device.type == "cpu":
         return bilinear_sample_bwd_plain(g, grid, feats_shape, dtype)
-    if capture_split is not None:
-        return capture_split(bilinear_sample_bwd, g, grid, feats_shape, dtype)
     m, h, w, c = feats_shape
     _check(feats_shape, grid, g.device)
     if g.dtype not in _DTYPES or dtype not in _DTYPES:
@@ -206,11 +202,6 @@ def bilinear_sample_bwd(g, grid, feats_shape, dtype, out=None):
 
 # (pixels per band, point splits) of the last backward launch at each shape
 bwd_plans_launched = {}
-
-# while a piecewise CUDA-graph capture of the training step runs
-# (train/train_graphs.py): called as capture_split(wrapper, *args) in place
-# of a CUDA call of ``_sample_forward`` or ``bilinear_sample_bwd``
-capture_split = None
 
 
 def bwd_launch(g, grid, feats_shape, dtype, band_pix: int, splits: int, out=None):
@@ -240,7 +231,7 @@ class _BilinearSample(torch.autograd.Function):
     def forward(ctx, feats, grid):
         ctx.save_for_backward(grid)
         ctx.feats = (tuple(feats.shape), feats.dtype)
-        return _sample_forward(feats, grid)
+        return bilinear_sample_fwd(feats, grid)
 
     @staticmethod
     def backward(ctx, g):
@@ -252,6 +243,7 @@ class _BilinearSample(torch.autograd.Function):
         return d_feats, d_grid
 
 
+@counted
 def bilinear_sample(feats, grid):
     """feats: (M, H, W, C) contiguous bf16 or f32; grid: (M, P, 2) in
     [-1, 1] (cast to contiguous f32 on the card). Returns (M, P, C) in
@@ -266,7 +258,3 @@ def bilinear_sample(feats, grid):
     H, W, C, P, dtype) in ``bilinear_sample.launches_by_shape``.
     """
     return _BilinearSample.apply(feats, grid)
-
-
-bilinear_sample.launches_by_shape = Counter()
-bilinear_sample_bwd.launches_by_shape = Counter()

@@ -130,6 +130,11 @@ def tensor_parallel(group):
         _MODEL_GROUP = prev
 
 
+def model_group():
+    """The active model group; None outside ``tensor_parallel``."""
+    return _MODEL_GROUP
+
+
 def model_size() -> int:
     """The size of the active model group; 1 outside ``tensor_parallel``."""
     return 1 if _MODEL_GROUP is None else dist.get_world_size(_MODEL_GROUP)

@@ -8,11 +8,11 @@ runs (the benchmark's traced runs, the training CLI's ``--profile_steps``),
 and they land in that profiler's trace beside the aten ops and the
 device's kernels, on its clock.
 
-One other listener: while ``recorder`` is set (a piecewise CUDA-graph
-capture of the training step, ``train/train_graphs.py``, which never runs
-under a profiler), ``span(name)`` is ``recorder(name)``, a context manager
-of the recorder's, so that the capture knows where each span opens and
-closes and can reopen it around the replayed work.
+One other listener: while a piecewise capture runs (``utils/graphs.py``,
+never under a profiler) and names a span among its ``spans``, that span is a
+split point of the capture, ``capture.edge(name)``, so that the capture
+knows where the span opens and closes and can reopen it around the replayed
+work.
 
 Every name starts with ``cd360.``; PERF.md §3 lists them, where each sits
 and the metric that reads it.
@@ -24,20 +24,19 @@ import functools
 
 import torch
 
-_OFF = contextlib.nullcontext()
+from . import graphs
 
-# while set: a callable, name -> a context manager that stands for the span
-recorder = None
+_OFF = contextlib.nullcontext()
 
 
 def span(name: str):
     """A ``record_function`` span named ``name`` while a profiler runs,
-    else ``recorder(name)`` while a recorder is set, else the shared null
-    context."""
+    else the capture's edge while a piecewise capture that splits at it
+    runs, else the shared null context."""
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
-    if recorder is not None:
-        return recorder(name)
+    if graphs.capture is not None and name in graphs.capture.spans:
+        return graphs.capture.edge(name)
     return _OFF
 
 

@@ -1,5 +1,5 @@
 """The cached UNet evaluation replayed as piecewise CUDA graphs
-(``models/unet_graphs.py``) against the same network run eagerly, on a CUDA
+(``models/unet_graphs.py`` on ``utils/graphs.py``) against the same network run eagerly, on a CUDA
 card.
 
 Marked ``cuda``: skipped without a card. The file imports neither JAX nor
@@ -25,6 +25,7 @@ from custom_diffusion360_torch.engine import Engine, EngineConfig
 from custom_diffusion360_torch.geometry.cameras import Cameras
 from custom_diffusion360_torch.models import unet_graphs
 from custom_diffusion360_torch.models.unet import UNetConfig, attn_block_meta, init_unet_params
+from custom_diffusion360_torch.utils.graphs import COUNTED
 
 pytestmark = pytest.mark.cuda
 
@@ -231,10 +232,10 @@ def test_replays_count_every_launch_as_the_eager_network(dev, monkeypatch):
     _sample(eng, params, req)
 
     def counted(fn):
-        for w in unet_graphs._counted():
+        for w in COUNTED:
             w.launches_by_shape.clear()
         fn()
-        return {w.__name__: dict(w.launches_by_shape) for w in unet_graphs._counted()}
+        return {w.__name__: dict(w.launches_by_shape) for w in COUNTED}
 
     graphed = counted(lambda: _sample(eng, params, req))
     eager = counted(lambda: _eager(monkeypatch, lambda: _sample(eng, params, req)))
@@ -261,5 +262,7 @@ def test_capture_replay_and_eager_counts(dev, monkeypatch):
 
     (graphs,) = eng.graphs._graphs.values()  # one shape, one set of graphs
     calls = sum(depth for _, _, depth in attn_block_meta(UNET).values())  # self-attentions
-    assert len(graphs.calls) == calls and len(graphs.segments) == calls + 1
-    assert {w.__name__ for w, _, _ in graphs.calls} == {"attention_fwd"}
+    segments = [graph for graph, _, _ in graphs.items if graph is not None]
+    eager = [call for _, call, _ in graphs.items if call is not None]
+    assert len(eager) == calls and len(segments) == calls + 1 and not graphs.empty
+    assert {fn.__name__ for fn, _, _ in eager} == {"attention_fwd"}

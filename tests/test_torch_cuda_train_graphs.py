@@ -1,5 +1,5 @@
 """The training step replayed as piecewise CUDA graphs
-(``train/train_graphs.py``) against the same step run eagerly, on a CUDA
+(``train/train_graphs.py`` on ``utils/graphs.py``) against the same step run eagerly, on a CUDA
 card.
 
 Marked ``cuda``: skipped without a card. The file imports neither JAX nor
@@ -33,10 +33,10 @@ from custom_diffusion360_torch.geometry.cameras import Cameras
 from custom_diffusion360_torch.models.clip import ClipTextConfig
 from custom_diffusion360_torch.models.conditioner import ConditionerConfig
 from custom_diffusion360_torch.models.unet import UNetConfig
-from custom_diffusion360_torch.models.unet_graphs import _counted
 from custom_diffusion360_torch.models.vae import VAEConfig
 from custom_diffusion360_torch.train import train_graphs
 from custom_diffusion360_torch.train.trainer import TrainConfig, Trainer, tree_map
+from custom_diffusion360_torch.utils.graphs import COUNTED
 
 pytestmark = pytest.mark.cuda
 
@@ -125,12 +125,12 @@ def _draws(k, dev):
 
 
 def _launches():
-    return {fn.__name__: dict(fn.launches_by_shape) for fn in _counted()}
+    return {fn.__name__: dict(fn.launches_by_shape) for fn in COUNTED}
 
 
 def _launched(before):
     out = {}
-    for fn in _counted():
+    for fn in COUNTED:
         moved = {k: v - before[fn.__name__].get(k, 0) for k, v in fn.launches_by_shape.items()}
         out[fn.__name__] = {k: v for k, v in moved.items() if v}
     return out

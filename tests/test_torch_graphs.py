@@ -1,8 +1,8 @@
 """The cached UNet evaluation's CUDA-graph path (``models/unet_graphs.py``)
 on the CPU: when it engages, that the CPU runs the network as it is and
-counts nothing, and the q/k/v fusion into kept buffers. The graphs
-themselves are held to the eager network on the card
-(``tests/test_torch_cuda_graphs.py``)."""
+counts nothing, and the q/k/v fusion into kept buffers; and the split hook
+of the piecewise capture (``utils/graphs.py``). The graphs themselves are
+held to the eager network on the card (``tests/test_torch_cuda_graphs.py``)."""
 import pytest
 import torch
 
@@ -16,6 +16,7 @@ from custom_diffusion360_torch.models.unet import (
     init_unet_params,
 )
 from custom_diffusion360_torch.parallel import tp
+from custom_diffusion360_torch.utils import graphs
 from tests.test_torch_common import TINY_UNET
 from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
 
@@ -130,3 +131,38 @@ def test_row_blocks_match_index_select():
     for blocks in ([0, 1], [0, 0, 1], [1, 0, 2]):
         rows = torch.cat([torch.arange(i * 2, (i + 1) * 2) for i in blocks])
         assert torch.equal(_row_blocks(t, blocks, 2), t.index_select(0, rows))
+
+
+def test_a_split_point_reaches_only_a_capture_that_splits_there(monkeypatch):
+    """With no capture a split point's call goes straight through; during a
+    capture it goes to the capture's ``split`` only when the wrapper is in
+    the capture's split set, and launches as it is otherwise."""
+    launched = []
+
+    def launch(name):
+        @graphs.split_point
+        def wrapper(x, out=None):
+            launched.append(name)
+            return x + 1
+
+        return wrapper
+
+    inside, outside = launch("inside"), launch("outside")
+    assert inside(1) == 2 and outside(1) == 2 and launched == ["inside", "outside"]
+
+    class Capture:
+        splits = frozenset({inside})
+
+        def __init__(self):
+            self.calls = []
+
+        def split(self, fn, args, kwargs):
+            self.calls.append((fn.__name__, args, kwargs))
+            return fn(*args, **kwargs)
+
+    capture = Capture()
+    monkeypatch.setattr(graphs, "capture", capture)
+    launched.clear()
+    assert inside(5) == 6 and outside(7) == 8
+    assert capture.calls == [("wrapper", (5,), {})]
+    assert launched == ["inside", "outside"]

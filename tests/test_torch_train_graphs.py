@@ -1,8 +1,8 @@
-"""The training step's CUDA-graph path (``train/train_graphs.py``) on the
-CPU: when it engages, that the CPU runs the step as before and counts
-nothing, the draws' fixed order (the NeRF's coin selects on the device),
-the noted draws taken again and served in order, the spans a replay
-reopens, and a span's recorder. The graphs themselves are held to the
+"""The training step's CUDA-graph path (``train/train_graphs.py`` on
+``utils/graphs.py``) on the CPU: when it engages, that the CPU runs the step
+as before and counts nothing, the draws' fixed order (the NeRF's coin
+selects on the device), the noted draws taken again and served in order, the
+spans a replay reopens, and a span's edges in a capture. The graphs themselves are held to the
 eager step on the card (``tests/test_torch_cuda_train_graphs.py``)."""
 import types
 
@@ -19,7 +19,7 @@ from custom_diffusion360_torch.models import nerf
 from custom_diffusion360_torch.ops import image_resize
 from custom_diffusion360_torch.train import train_graphs
 from custom_diffusion360_torch.train.trainer import TrainConfig, Trainer, TrainState
-from custom_diffusion360_torch.utils import trace
+from custom_diffusion360_torch.utils import graphs, trace
 from tests.test_torch_common import torch_threads  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.usefixtures("torch_threads")
@@ -152,13 +152,13 @@ def test_noted_draws_are_taken_again_and_served_in_order():
 
 
 def test_a_replay_reopens_the_spans_of_its_segments():
-    """``_Spans`` keeps a span open over consecutive items of one instance
+    """``graphs._Spans`` keeps a span open over consecutive items of one instance
     and closes and reopens it between two instances of one name."""
     fwd, nerf_a, nerf_b = ("cd360.train.forward", 1), ("cd360.nerf", 2), ("cd360.nerf", 3)
     stacks = [(fwd,), (fwd, nerf_a), (fwd, nerf_a), (fwd, nerf_b), (fwd,), (),
               (("cd360.train.backward", 4),)]
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        spans = train_graphs._Spans()
+        spans = graphs._Spans()
         for stack in stacks:
             spans.enter(stack)
             torch.zeros(1).add_(1)
@@ -174,16 +174,22 @@ def test_a_replay_reopens_the_spans_of_its_segments():
 
 
 def test_a_span_goes_to_the_recorder_only_without_a_profiler(monkeypatch):
+    """A span is the capture's edge only when the capture splits at it, and
+    never under a profiler."""
     seen = []
 
-    def recorder(name):
-        seen.append(name)
-        return trace._OFF
+    class Capture:
+        spans = train_graphs.SPLIT_SPANS
 
-    monkeypatch.setattr(trace, "recorder", recorder)
+        def edge(self, name):
+            seen.append(name)
+            return trace._OFF
+
+    monkeypatch.setattr(graphs, "capture", Capture())
     with trace.span("cd360.nerf"):
         pass
     assert seen == ["cd360.nerf"]
+    assert trace.span("cd360.unet.attn") is trace._OFF
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         assert isinstance(trace.span("cd360.nerf"), torch.profiler.record_function)
     assert seen == ["cd360.nerf"]
@@ -195,9 +201,10 @@ def test_a_recompute_stopped_early_closes_its_span(monkeypatch):
     early stop); the capture's edge closes the span all the same."""
     from torch.utils.checkpoint import checkpoint
 
-    class Edges(train_graphs._StepGraphs):
+    class Edges(graphs.Segments):
         def __init__(self):  # the span bookkeeping only: no graphs on the CPU
-            self._stack, self._spans_opened, self.log = [], 0, []
+            super().__init__(spans=train_graphs.SPLIT_SPANS)
+            self.log = []
 
         def _begin(self):
             self.log.append(tuple(name for name, _ in self._stack))
@@ -206,7 +213,7 @@ def test_a_recompute_stopped_early_closes_its_span(monkeypatch):
             pass
 
     edges = Edges()
-    monkeypatch.setattr(trace, "recorder", edges._span)
+    monkeypatch.setattr(graphs, "capture", edges)
 
     def run(x):
         with trace.span("cd360.nerf"):
