@@ -4,9 +4,13 @@ projected ray points, predict density and features with small MLPs; the
 caller volume-renders.
 
 The renders run the split/commuted encoding (``nerf_encoding_split``; see
-the JAX module for the algebra); ``nerf_encoding_apply`` is the unsplit
-form it is held to, which samples the reference maps themselves (through
-the bilinear kernel on CUDA). The reference tokens are either delta-buffer ``CompactRefTokens`` (sampling) or
+the JAX module for the algebra of its first four rewrites). A fifth is the
+port's own: everything after the SiLU is linear and the view weights sum to
+one, so the feature pass pools the views before the C x C ``l2`` product
+instead of after it, and ``l2`` runs on a 1/N share of the rows.
+``nerf_encoding_apply`` is the unsplit form it is held to, which samples
+the reference maps themselves (through the bilinear kernel on CUDA). The
+reference tokens are either delta-buffer ``CompactRefTokens`` (sampling) or
 dense (B, N, hw, C) tokens from the live reference stream (training), which
 take a per-row ``mask_ref``. Inside ``view_sharded(group)`` the render is
 split over the reference views (``Engine.sample(view_group=)``, the JAX
@@ -493,6 +497,8 @@ def nerf_encoding_split(params, cams: Cameras, proj, geo_ray, logit_ray,
 
     attn_out = None if attn is None else attn[..., None]
     if sigma_only:
+        # rewrite 4 (the JAX module's): l2, the pool and the decoder's sigma
+        # column collapse to one C -> 1 contraction
         l2 = params["plane_coefs"]["l2"]
         wd = params["decoder"]["w"]
         w2d = (l2["w"] @ wd)[:, -1]
@@ -505,12 +511,16 @@ def nerf_encoding_split(params, cams: Cameras, proj, geo_ray, logit_ray,
             sigma = sigma + (l2["b"] @ wd)[-1]
         return sigma[..., None], attn_out
 
-    h = linear(params["plane_coefs"]["l2"], h_act)
-    del h_act
+    # rewrite 5: pool the views before l2, as rewrite 4 does for sigma:
+    # sum_n attn_n (h_act_n W2 + b2) = (sum_n attn_n h_act_n) W2 + b2, since
+    # the softmax's weights sum to 1 (and the mean's), so l2 runs once on
+    # B hw S rows instead of B N hw S, and adds its bias once
     if attn is None:
-        pooled = _view_mean(h)
+        pooled_act = _view_mean(h_act)
     else:
-        pooled = _view_reduce((h * attn[..., None].to(cdt)).sum(1, dtype=torch.float32))
+        pooled_act = _view_reduce((h_act * attn[..., None].to(cdt)).sum(1, dtype=torch.float32))
+    del h_act
+    pooled = linear(params["plane_coefs"]["l2"], pooled_act.to(cdt)).float()
     out = linear(params["decoder"], pooled)  # f32 (density feeds trunc_exp)
     return torch.cat([pooled, out], dim=-1), attn_out
 
